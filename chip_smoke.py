@@ -34,7 +34,14 @@ phases; any failure exits non-zero before the result line is printed:
    plain versions bit for bit (tolerance 0) on the 64 MiB bench corpus,
    all byte pairs, all-0x00, all-0xFF, the seam corpus and unpadded
    corpora of 32 rows, 64 rows, 1 MiB and 64 MiB whose edges read the
-   lanes kernel's edge context; (b) the step's four routes (swar,
+   lanes kernel's edge context; `flagship_swar_lanes` under five filter
+   sets (the defaults, grep, UTF-16 intervals that reach the astral
+   planes, one that covers the surrogates, 12 intervals a mission) and
+   also on corpora of 1, 3 and 33 rows with a 4-byte UTF-8 char or a
+   surrogate pair across every 16-byte and 512-byte seam, in UTF-8,
+   UTF-16LE and UTF-16BE, whose edges tell zero bytes around the stream
+   from any of its own; unaligned words must raise; (b) the step's four
+   routes (swar,
    swar-lanes, lanes, plain) must give the same run tables on the 64 MiB
    bench corpus with and without xor_word, on a sparse 64 MiB corpus at a
    capacity above its run count, and (lanes and plain) for a mission set
@@ -500,9 +507,11 @@ def phase_step(dev, big):
     """Phase 5."""
     from stringsext_tpu_torch import entry as step_mod
     from stringsext_tpu_torch.corpus import (
+        SWAR_LANES_FILTERS,
         flagship_missions,
         make_corpus,
         sparse_corpus,
+        swar_lanes_corpora,
     )
     from stringsext_tpu_torch.ops import scan, swar
 
@@ -512,28 +521,43 @@ def phase_step(dev, big):
     assert swar.swar_params(many.v) is None
 
     # (a) each kernel against its plain version, bit for bit
+    swar_sets = {name: swar.swar_params(flagship_missions(**kw).v)
+                 for name, kw in SWAR_LANES_FILTERS.items()}
+    both = lanes_corpora(big)  # whole 4096-byte blocks: both kernels take them
     ncmp = 0
-    for cname, raw in lanes_corpora(big).items():
+    for cname, raw in {**both, **swar_lanes_corpora()}.items():
         b = torch.from_numpy(raw).to(dev)
         w = b.view(torch.int32).reshape(-1, 128)
+        for sname, p in swar_sets.items():
+            got = swar.flagship_swar_lanes(w, **p)
+            want = swar.flagship_swar_lanes_ref(w, **p)
+            for mi, (g, x) in enumerate(zip(got, want)):
+                check_equal("flagship_swar_lanes",
+                            f"{cname} / {sname} mission {mi}", g, x)
+            ncmp += 1
+        if cname not in both:
+            say(f"  {cname}: flagship_swar_lanes == plain for "
+                f"{', '.join(swar_sets)}")
+            continue
         for mname, ms in (("flagship", flagship), ("grep", grep),
                           ("many", many)):
-            p = swar.swar_params(ms.v)
-            if p is not None:
-                got = swar.flagship_swar_lanes(w, **p)
-                want = swar.flagship_swar_lanes_ref(w, **p)
-                for mi, (g, x) in enumerate(zip(got, want)):
-                    check_equal("flagship_swar_lanes",
-                                f"{cname} / {mname} mission {mi}", g, x)
-                ncmp += 1
             params = scan.flagship_params(ms.v)
             d = b.reshape(-1, 128)
             check_equal("flagship_mission_lanes", f"{cname} / {mname}",
                         scan.flagship_mission_lanes(d, params),
                         scan.flagship_mission_lanes_ref(d, params))
             ncmp += 1
-        say(f"  {cname}: both kernels == plain for flagship, grep and "
-            f">12-interval params")
+        say(f"  {cname}: flagship_swar_lanes == plain for "
+            f"{', '.join(swar_sets)}; flagship_mission_lanes == plain for "
+            f"flagship, grep and >12-interval params")
+    off = torch.zeros(128 * 8 + 1, dtype=torch.int32, device=dev)[1:]
+    try:
+        swar.flagship_swar_lanes(off.reshape(8, 128), **swar_sets["flagship"])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flagship_swar_lanes took words that are not "
+                             "16-byte aligned")
     say(f"phase 5a: {ncmp} kernel comparisons, max abs difference "
         f"{max(RESULTS[k]['err'] for k in RESULTS)} (tolerance 0)")
 
@@ -779,7 +803,10 @@ def time_lanes_kernels(dev, big):
     """Kernels #2-#6 and their plain versions at SIZE: each reads the
     stream once and writes one int32 a byte (three words a word for
     `flagship_swar_lanes`)."""
-    from stringsext_tpu_torch.corpus import flagship_missions
+    from stringsext_tpu_torch.corpus import (
+        SWAR_LANES_FILTERS,
+        flagship_missions,
+    )
     from stringsext_tpu_torch.mission import Missions
     from stringsext_tpu_torch.ops import scan, swar
 
@@ -791,6 +818,12 @@ def time_lanes_kernels(dev, big):
     p = swar.swar_params(flagship.v)
     params = scan.flagship_params(flagship.v)
     what = f"{n // MIB} MiB"
+    for sname in ("grep", "astral", "twelve"):
+        q = swar.swar_params(flagship_missions(**SWAR_LANES_FILTERS[sname]).v)
+        t = cuda_ms(lambda: swar.flagship_swar_lanes(w, **q))
+        say(f"flagship_swar_lanes {what}, filter set {sname}: kernel min/"
+            f"median/max {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} ms a launch in "
+            f"runs of 10")
     time_kernel("flagship_swar_lanes", f"flagship_swar_lanes {what}",
                 lambda: swar.flagship_swar_lanes(w, **p),
                 lambda: swar.flagship_swar_lanes_ref(w, **p), n + 3 * n)

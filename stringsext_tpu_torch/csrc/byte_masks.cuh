@@ -6,9 +6,10 @@
 // is `>> k` and a lookback `<< k`: the SWAR algebra of
 // stringsext_tpu/ops/pallas_swar.py (`_utf8_structure` :161, `_utf16_*`
 // :370-461) on one register a predicate. The eight bit planes of the bytes
-// (plane k: bit k of every byte) are gathered from the packed words four
-// bytes an operation; every predicate that depends on one byte's value is
-// then a few logic operations on the planes for the whole window at once.
+// (plane k: bit k of every byte) are gathered from the packed words, four
+// bytes an operation (plane8) or all eight planes of eight bytes by a bit
+// transpose (transpose8); every predicate that depends on one byte's value
+// is then a few logic operations on the planes for the whole window at once.
 // Bytes outside the window read as zero.
 
 #pragma once
@@ -24,6 +25,25 @@ namespace {
 __device__ __forceinline__ uint32_t plane8(uint32_t a, uint32_t b, int k) {
   constexpr uint32_t kLsb = 0x01010101u, kGather = 0x01020408u;
   return ((((a >> k) & kLsb) | (((b >> k) & kLsb) << 4)) * kGather) >> 24;
+}
+
+// All eight planes of the 8 bytes of (a, b) at once: the bytes are the rows
+// of an 8 x 8 bit matrix, and three rounds of swaps (of single bits, of 2 x 2
+// and of 4 x 4 blocks across the diagonal) transpose it. Afterwards byte k of
+// `a` is plane k, as plane8(a, b, k) gives it, and byte k of `b` plane 4 + k.
+__device__ __forceinline__ void transpose8(uint32_t& a, uint32_t& b) {
+  uint32_t t;
+  t = (a ^ (a >> 7)) & 0x00AA00AAu;
+  a ^= t ^ (t << 7);
+  t = (b ^ (b >> 7)) & 0x00AA00AAu;
+  b ^= t ^ (t << 7);
+  t = (a ^ (a >> 14)) & 0x0000CCCCu;
+  a ^= t ^ (t << 14);
+  t = (b ^ (b >> 14)) & 0x0000CCCCu;
+  b ^= t ^ (t << 14);
+  t = (a & 0x0F0F0F0Fu) | ((b << 4) & 0xF0F0F0F0u);
+  b = ((a >> 4) & 0x0F0F0F0Fu) | (b & 0xF0F0F0F0u);
+  a = t;
 }
 
 // The filter-independent UTF-8 masks (pallas_swar.py::_utf8_structure):

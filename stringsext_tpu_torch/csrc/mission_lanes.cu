@@ -32,7 +32,7 @@
 // neighbouring lanes by shuffle (the warp's first and last lane load
 // theirs, with the edge rule above: word 1023 before word 0, word
 // (R-32)*32 after the last), a 24-byte window for 16 own bytes. The eight
-// bit planes of the window are gathered four bytes an operation; every
+// bit planes of the window are made by three 8 x 8 bit transposes; every
 // predicate is then one uint32 over the window, so each position's event
 // is computed once and `claimed` and the lookaheads are shifts. UTF-16
 // units stand at the even bits of the same window: the LE and BE missions
@@ -40,9 +40,9 @@
 // high byte alone, and differ in which byte that is. The filters are
 // 256-bit tables in shared memory, looked up a byte (UTF-8) or a decoded
 // code point (UTF-16) at a time; no register array is indexed by data. The
-// masks of the three missions are spread back to bytes four positions a
-// multiply (the BE bits ride one position above the LE bits, which stand
-// at even positions only). A thread's 16 results are 64 contiguous bytes;
+// masks of the three missions are spread back to bytes by bit transposes,
+// two for the 16 own bytes of a mission (the BE bits ride one position above
+// the LE bits, which stand at even positions only, so they share theirs). A thread's 16 results are 64 contiguous bytes;
 // written from the thread, a warp's store would touch 32 separate half
 // sectors, so the warp stages its 2 KB through shared memory and stores
 // four runs of 512 contiguous bytes (store_fields). The per-mission
@@ -78,18 +78,20 @@ flagship_mission_lanes_kernel(const uint32_t* __restrict__ data, int64_t nwords,
   uint32_t c[6], W[8];
   load_window(data, i, nwords, tail_word, c);
   window_planes(c, W);
-  const FieldMasks f8 = utf8_field_masks(c, W, table[0], prm.m[0].grep);
+  const FieldMasks f8 = utf8_field_masks(W, table_passes(c, table[0]), prm.m[0].grep);
   const FieldMasks le = utf16_field_masks(c, W, false, table[1], prm.m[1].grep);
   const FieldMasks be = utf16_field_masks(c, W, true, table[2], prm.m[2].grep);
   // LE fields stand at even positions, so the BE fields fit one above
   uint32_t m16[7];
 #pragma unroll
   for (int b = 0; b < 7; ++b) m16[b] = le.m[b] | (be.m[b] << 1);
+  uint32_t v8[4], v16[4];
+  field_words(f8.m, v8);  // word q: the UTF-8 fields of the own bytes 4q..4q+3
+  field_words(m16, v16);  // LE 4q, BE 4q, LE 4q+2, BE 4q+2
   int4 v[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint32_t f = field_bytes(f8.m, q);  // UTF-8 fields of bytes 4q..4q+3
-    const uint32_t g = field_bytes(m16, q);   // LE 4q, BE 4q, LE 4q+2, BE 4q+2
+    const uint32_t f = v8[q], g = v16[q];
     v[q] = make_int4((f & 0xFFu) | ((g & 0xFFFFu) << 8), (f >> 8) & 0xFFu,
                      ((f >> 16) & 0xFFu) | ((g >> 16) << 8), f >> 24);
   }

@@ -62,15 +62,15 @@ mission_lanes_kernel(const uint32_t* __restrict__ data, int64_t nwords, int64_t 
   uint32_t c[6], W[8];
   load_window(data, i, nwords, tail_word, c);
   window_planes(c, W);
-  const FieldMasks f = kKind == kUtf8 ? utf8_field_masks(c, W, table, prm.grep)
+  const FieldMasks f = kKind == kUtf8 ? utf8_field_masks(W, table_passes(c, table), prm.grep)
                                       : utf16_field_masks(c, W, kKind == kUtf16be, table,
                                                           prm.grep);
+  uint32_t w[4];
+  field_words(f.m, w);  // UTF-16: zero at odd positions
   int4 v[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t b = field_bytes(f.m, q);  // UTF-16: zero at odd positions
-    v[q] = make_int4(b & 0xFFu, (b >> 8) & 0xFFu, (b >> 16) & 0xFFu, b >> 24);
-  }
+  for (int q = 0; q < 4; ++q)
+    v[q] = make_int4(w[q] & 0xFFu, (w[q] >> 8) & 0xFFu, (w[q] >> 16) & 0xFFu, w[q] >> 24);
   store_fields(out, i, v, stage);
 }
 

@@ -51,8 +51,8 @@ BLOCK = 512  # stream bytes per row
 # csrc/swar_counts.cu and csrc/swar_lanes.cu - keep the three in step):
 # a header of _HDR fields, then interval list A and interval list B,
 # _MAX_IV (lo, hi) pairs each, then two 256-bit byte tables of 8 words
-# (bit v & 31 of word v >> 5 stands for byte value v) that swar_counts.cu
-# looks bytes up in instead of walking the lists.
+# (bit v & 31 of word v >> 5 stands for byte value v) that the kernels
+# look bytes up in instead of walking the lists.
 #   utf8:  A = AF byte intervals, B = UBF lead-byte intervals;
 #          table A = the bytes in A or B
 #   utf16: A = codepoint intervals; no tables
@@ -129,6 +129,11 @@ def pack_specs(specs) -> np.ndarray:
         if len(r.a) > _MAX_IV or len(r.b) > _MAX_IV:
             raise ValueError(
                 f"spec {i} has more than {_MAX_IV} intervals in one list")
+        if any(not 0 <= v < 1 << 30 for iv in r.a + r.b for v in iv):
+            # csrc/mission_fields.cuh tests an interval by the signs of
+            # cp - lo and hi - cp
+            raise ValueError(f"spec {i} has an interval bound outside "
+                             f"[0, 2**30)")
         t = table[i]
         t[H_KIND] = KINDS.index(r.kind)
         t[H_BE], t[H_ASTRAL], t[H_LENS], t[H_GREP] = (
@@ -432,7 +437,14 @@ def flagship_swar_lanes_ref(words_2d: torch.Tensor, af_iv, ubf_iv,
 
 
 def _freeze(x):
-    return tuple(_freeze(v) for v in x) if isinstance(x, (list, tuple)) else x
+    """`x` with its lists made tuples, so that it can key a cache; specs
+    that are tuples all the way down (`swar_params`'s) come back as they
+    are, for the price of a hash."""
+    try:
+        hash(x)
+        return x
+    except TypeError:
+        return tuple(_freeze(v) for v in x)
 
 
 @functools.lru_cache(maxsize=64)
@@ -514,10 +526,10 @@ swar_counts.launches = 0
 
 _SWAR_LANES_ARGS = [
     ctypes.c_void_p,  # words
-    ctypes.c_int64,  # number of words
-    ctypes.c_void_p,  # out [nspecs][words]
-    ctypes.c_void_p,  # table
-    ctypes.c_int,  # nspecs
+    ctypes.c_int64,  # rows
+    ctypes.c_void_p,  # out [3][rows][128]
+    ctypes.c_void_p,  # table: the trio's three records
+    ctypes.c_int,  # whether a record holds a grep char
     ctypes.c_int,  # device index
     ctypes.c_void_p,  # cudaStream_t
 ]
@@ -543,16 +555,18 @@ def flagship_swar_lanes(words_2d: torch.Tensor, af_iv, ubf_iv, cp_iv_le,
     out = torch.empty((len(specs),) + tuple(words_2d.shape),
                       dtype=torch.int32, device=words_2d.device)
     if words_2d.numel() == 0:
-        return tuple(out)
+        return out.unbind(0)
+    if words_2d.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
     from .. import _build
 
     stream = torch.cuda.current_stream(words_2d.device)
     _build.launch("swar_lanes_launch", _SWAR_LANES_ARGS,
-                  words_2d.data_ptr(), words_2d.numel(), out.data_ptr(),
-                  tab.data_ptr(), len(specs), words_2d.device.index,
-                  stream.cuda_stream)
+                  words_2d.data_ptr(), words_2d.shape[0], out.data_ptr(),
+                  tab.data_ptr(), int(any(g >= 0 for g in greps)),
+                  words_2d.device.index, stream.cuda_stream)
     flagship_swar_lanes.launches += 1
-    return tuple(out)
+    return out.unbind(0)
 
 
 flagship_swar_lanes.launches = 0

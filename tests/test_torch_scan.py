@@ -2,7 +2,9 @@
 run in interpret mode, on the CPU:
 
 - `flagship_swar_lanes_ref` (stringsext_tpu_torch/ops/swar.py) against
-  `pallas_swar.flagship_swar_lanes`;
+  `pallas_swar.flagship_swar_lanes`, also under filters that set the
+  UTF-16 `astral` flag or have 12 intervals and on the seam and edge
+  corpora of the CUDA kernel's design;
 - `flagship_mission_lanes_ref` (stringsext_tpu_torch/ops/scan.py) against
   `pallas_scan.flagship_mission_lanes`, on unpadded random edges, which
   pins the reference's stream-edge context;
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 from stringsext_tpu.mission import Missions
 from stringsext_tpu.ops import pallas_scan, pallas_swar
 from stringsext_tpu_torch import _build
+from stringsext_tpu_torch.corpus import SWAR_LANES_FILTERS, swar_lanes_corpora
 from stringsext_tpu_torch.ops import scan, swar
 
 MISSION_SETS = {
@@ -30,6 +33,7 @@ MISSION_SETS = {
     "asian": dict(flag_unicode_block_filter="Asian", flag_grep_char="41"),
     "nul": dict(flag_ascii_filter="0x" + "f" * 32),
     "many-intervals": dict(flag_ascii_filter="0x" + "5" * 32),
+    "twelve": SWAR_LANES_FILTERS["twelve"],  # 12 intervals a mission
 }
 
 
@@ -64,26 +68,39 @@ def test_copied_params_equal_the_originals(name):
     assert (swar.swar_params(ms) is None) == (name == "many-intervals")
 
 
-@pytest.mark.parametrize("corpus", ["random", "pairs"])
+@pytest.mark.parametrize("corpus", ["random", "pairs", "seams-8-rows",
+                                    "seams-40-rows"])
 @pytest.mark.parametrize("name", ["flagship", "grep", "astral", "asian",
-                                  "nul"])
+                                  "nul", "twelve"])
 def test_flagship_swar_lanes_ref_matches_jax(name, corpus):
+    """`seams-N-rows`: the corpora that the CUDA kernel's 16-byte threads
+    and 512-byte warps make risky (`corpus.swar_lanes_corpora`: a 4-byte
+    char or a surrogate pair across every seam in each codec, and edges
+    that tell zero bytes around the stream from its own), at row counts
+    the reference's 8-row halo blocks take."""
+    tile_rows = 32
     if corpus == "random":
         raw = _corpus(64 * 512, seed=len(name))
         raw[-1] = 0xC3  # a lead byte at the very end: its trail is virtual
+        corpora = {corpus: raw}
+    elif corpus == "pairs":
+        corpora = {corpus: np.array([[i, j] for i in range(256)
+                                     for j in range(256)],
+                                    np.uint8).reshape(-1)}
     else:
-        raw = np.array([[i, j] for i in range(256) for j in range(256)],
-                       np.uint8).reshape(-1)
-    words = raw.view(np.int32).reshape(-1, 128)
+        tile_rows = 8
+        corpora = swar_lanes_corpora((int(corpus.split("-")[1]),))
     p = swar.swar_params(_missions(name))
-    want = pallas_swar.flagship_swar_lanes(jnp.asarray(words), tile_rows=32,
-                                           interpret=True, **p)
-    got = swar.flagship_swar_lanes(torch.from_numpy(words), **p)
-    assert len(got) == 3
-    for mi, (g, w) in enumerate(zip(got, want)):
-        assert g.dtype == torch.int32 and g.shape == words.shape
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
-                                      err_msg=f"mission {mi}")
+    for cname, raw in corpora.items():
+        words = raw.view(np.int32).reshape(-1, 128)
+        want = pallas_swar.flagship_swar_lanes(
+            jnp.asarray(words), tile_rows=tile_rows, interpret=True, **p)
+        got = swar.flagship_swar_lanes(torch.from_numpy(words), **p)
+        assert len(got) == 3
+        for mi, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == torch.int32 and g.shape == words.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=f"{cname} mission {mi}")
     if name == "astral" and corpus == "random":
         assert ((got[1].numpy() & 1) != 0).sum() > 20  # pairs accepted
 
