@@ -27,10 +27,14 @@ phases; any failure exits non-zero before the result line is printed:
    `_orbit_mask_blocked` (CUDA, `csrc/orbit_resolve.cu`) must equal its
    plain version bit for bit on random step fields with claim-rest tails
    at caps that are and are not multiples of 512, from starts 0, 3, 4, 7,
-   515 and 600, and on the step fields of the feed's 64 MiB pieces of the
-   stateful corpus; (2c) the card's run-table feed of Big5, EUC-JP,
-   EUC-KR, GBK, gb18030, Shift_JIS and ISO-2022-JP over 64 MiB of
-   `corpus.stateful_corpus` must equal the numpy oracle
+   515 and 600, on the step fields of the feed's 64 MiB pieces of the
+   stateful corpus and of an 8 MiB piece from its middle (start 4), on
+   steps of 1..8 and on blocks of steps 1..4 beside one block with a
+   step of 300, at caps of 5 tiles of 16384 and 1000 and of 40 tiles,
+   with starts in the last tile, n = 0 and n below the start, and on two
+   launches back to back over different data; (2c) the card's run-table
+   feed of Big5, EUC-JP, EUC-KR, GBK, gb18030, Shift_JIS and ISO-2022-JP
+   over 64 MiB of `corpus.stateful_corpus` must equal the numpy oracle
    `_feed_from_host_events` array by array, extras included, and on a
    4 MiB cut the port's CPU feed and the card's feed in 256 KiB pieces;
 3. the buffered main path - the port's CLI scan
@@ -115,7 +119,8 @@ every output written once) over 3.35 TB/s, the data sheet's figure for an
 H100 SXM; its operations are 32-bit integer logic, for which the data
 sheet gives no peak, so no kernel's bound is by operations. The orbit's
 bound counts its step field read once and its mask written once (5 bytes
-a position); its design reads the steps twice.
+a position), as its design moves them; it is also timed on the 8 MiB
+piece of the streamed path.
 
 The script imports torch, numpy and the port; it never imports jax or
 the JAX package and asserts so. Its last two lines are a JSON object
@@ -455,6 +460,20 @@ def piece_steps(raw, dev):
     return out
 
 
+def chunk_steps(raw, dev):
+    """The Shift_JIS step field of an 8 MiB piece (the streamed path's
+    chunk) from the middle of `raw`, as the feed reads a piece: LEFT_CTX
+    bytes before it and RIGHT_HALO after, n = its owned end and the start
+    s0 = LEFT_CTX. Returns (step, n, start)."""
+    from stringsext_tpu_torch.ops import device_events as de
+    from stringsext_tpu_torch.ops.classify_cjk import cjk_pre_lanes
+
+    lo = 8 * MIB - de.LEFT_CTX
+    b = torch.from_numpy(raw[lo:16 * MIB + de.RIGHT_HALO]).to(dev)
+    step = cjk_pre_lanes(b, "shift_jis", b.numel())[1]
+    return step, 8 * MIB + de.LEFT_CTX, de.LEFT_CTX
+
+
 def phase_orbit(dev, stateful):
     """Phase 2b: the orbit kernel against its plain version."""
     import numpy as np
@@ -480,13 +499,42 @@ def phase_orbit(dev, stateful):
                 if cap > 64 * MIB and start > 4:
                     break  # the plain version takes ~70 ms here
     steps = piece_steps(stateful, dev)
+    steps["Shift_JIS, 8 MiB"] = chunk_steps(stateful, dev)
     for enc, (step, n, start) in steps.items():
         got = _orbit_mask_blocked(step, n, start)
-        check_equal("orbit_resolve", f"{enc} 64 MiB piece", got,
+        check_equal("orbit_resolve", f"{enc} piece", got,
                     _orbit_mask_blocked_ref(step, n, start))
         ncmp += 1
         say(f"  {enc} piece of {step.numel()} bytes: kernel == plain, "
             f"{int(got.sum())} event starts")
+    # the design's own edges: tiles of 16384 positions, blocks with a
+    # live step above 4 (the general path), the start's constant map
+    tile = 16384
+    for cap in (5 * tile + 1000, 40 * tile):
+        wide = rng.integers(1, 9, cap).astype(np.int32)  # steps 1..8
+        one = rng.integers(1, 5, cap).astype(np.int32)
+        one[7 * 512 + 100] = 300  # one block of steps 1..4 and one of 300
+        for what, step, n in (("steps 1..8", wide, cap),
+                              ("steps 1..8", wide, cap // 2 + 3),
+                              ("one step of 300", one, cap),
+                              ("n = 0", one, 0)):
+            st = torch.from_numpy(step).to(dev)
+            for start in (0, 3, 515, cap - 100, cap // 2 + 50):
+                check_equal("orbit_resolve",
+                            f"cap {cap} {what} n {n} start {start}",
+                            _orbit_mask_blocked(st, n, start),
+                            _orbit_mask_blocked_ref(st, n, start))
+                ncmp += 1
+    # two launches back to back on different data of one size, each held
+    # to its plain version after both ran: a status word of the first
+    # left in the second's look-back would show
+    pair = [torch.from_numpy(rng.integers(1, 5, 8 * MIB).astype(np.int32)
+                             ).to(dev) for _ in range(2)]
+    got = [_orbit_mask_blocked(st, 8 * MIB, 1) for st in pair]
+    for k, st in enumerate(pair):
+        check_equal("orbit_resolve", f"back-to-back launch {k}", got[k],
+                    _orbit_mask_blocked_ref(st, 8 * MIB, 1))
+        ncmp += 1
     say(f"phase 2b: {ncmp} orbit comparisons, max abs difference "
         f"{RESULTS['orbit_resolve']['err']} (tolerance 0)")
 
@@ -1369,8 +1417,8 @@ def time_lanes_kernels(dev, big):
 
 def time_orbit(dev, stateful):
     """The orbit kernel and its plain version on the step fields of the
-    feed's 64 MiB pieces: int32 steps read once and a bool mask written
-    once make its bound (the design reads the steps twice)."""
+    feed's 64 MiB pieces and of an 8 MiB piece (the streamed chunk):
+    int32 steps read once and a bool mask written once make its bound."""
     from stringsext_tpu_torch.ops.classify_cjk import (
         _orbit_mask_blocked,
         _orbit_mask_blocked_ref,
@@ -1388,6 +1436,15 @@ def time_orbit(dev, stateful):
         time_kernel("orbit_resolve", label,
                     lambda: _orbit_mask_blocked(step, n, start),
                     lambda: _orbit_mask_blocked_ref(step, n, start), 5 * cap)
+    step, n, start = chunk_steps(stateful, dev)
+    t = cuda_ms(lambda: _orbit_mask_blocked(step, n, start))
+    plain = cuda_ms(lambda: _orbit_mask_blocked_ref(step, n, start), inner=1)
+    bound = 5 * step.numel() / HBM_BYTES_PER_S * 1e3
+    say(f"orbit_resolve, Shift_JIS 8 MiB piece of {step.numel()} bytes: "
+        f"kernel min/median/max {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} ms a "
+        f"launch in runs of 10; bound {bound:.4f} ms ({100 * bound / t[1]:.0f}"
+        f"% reached); plain torch min/median/max {plain[0]:.4f} / "
+        f"{plain[1]:.4f} / {plain[2]:.4f} ms")
 
 
 def kernels_line():

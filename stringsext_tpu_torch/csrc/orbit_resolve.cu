@@ -7,272 +7,461 @@
 //   in   int32 step[cap]; n, start (int64, 0 <= start < 512 * ceil(cap / 512))
 //   out  bool out[cap]: out[i] for i < n says the chain from `start` under
 //        i -> i + max(step[i], 1) reaches i. As in the reference, a chain
-//        that steps past n ends there (the position it steps from is
-//        marked), one that lands on a position at or past n ends unmarked,
-//        and one that leaves a 512-byte block for an offset past 3 of the
-//        next block ends (the transfer tables have no state for it; the
-//        lanes' mid-stream steps are 1..4, so this happens only past n).
-//        Positions past cap step by 1, as the reference's padding.
+//        that steps to n or past it ends there (the position it steps from
+//        is marked), one that stands on a position at or past n ends
+//        unmarked, and one that leaves a 512-byte block for an offset past 3
+//        of the next block ends. Positions past cap step by 1. Blocks before
+//        the start's block are never marked; the start's block is entered at
+//        start % 512, which may exceed 3.
 //
-// Design: the reference's blocked algebra, with walks in place of scans.
-//   1. orbit_transfer_kernel: a block of 128 threads stages the codes of 32
-//      512-byte blocks in shared memory (the offset the chain moves to from
-//      each offset, as uint16: 516 for "ends", 0x7FFF for "at or past n"),
-//      loading the steps 16 bytes a thread with eight loads in flight.
-//      Thread (seed, block) walks the chain from entry offset `seed` (0..3)
-//      to the offset where it leaves the block: the block's exit table, 4
-//      bytes in one word. The start block also walks from start % 512.
-//      Thread 0 composes the 32 tables into the thread block's map (5
-//      entries of 3 bits: entries 0..3 and DEAD).
-//   2. orbit_entry_kernel: one block of 1024 threads composes its share of
-//      those maps (4 a thread at 64 MiB), a Kogge-Stone scan over the 1024
-//      partial maps in shared memory gives every thread block's entry
-//      state. Composition of maps is associative, so no chain of dependent
-//      steps runs across all blocks.
-//   3. orbit_mark_kernel: the codes are staged again; thread 0 applies the
-//      32 exit tables from the thread block's entry state for each block's
-//      entry, and one thread a block walks from it, setting bit 15 of each
-//      code it visits; the block stores the bits as bytes, four a thread.
+// Bound: the steps read once and the mask written once, 5 bytes a position
+// (335.5 MB, 0.1002 ms at 3.35 TB/s for a 64 MiB piece). The design moves
+// those bytes in one kernel: each step is loaded once, 16 bytes a lane with
+// all of a warp's loads in flight, and each mask byte stored once, 16 bytes
+// a store. (Only the rare blocks of the general path, item 3, read their
+// steps a second time.)
 //
-// What bounds it on this card: the bytes are the step field read twice and
-// the mask written once (9 bytes a position: 0.18 ms for a 64 MiB piece at
-// 3.35 TB/s). The walks are chains of dependent shared-memory loads (up to
-// 512 a block, ~30 cycles each), hidden only by the other resident blocks;
-// with 33 KB of shared memory a block, an SM holds six.
+// Design. A thread owns a segment of 32 positions in each of two rounds; a
+// warp covers 1024 positions a round (two blocks of 512), a thread block of
+// 8 warps a tile of 2 x 8192.
+//   1. Codes. The warp stages its steps in shared memory (coalesced loads,
+//      then each lane reads its own 128 bytes from a rotated layout without
+//      bank conflicts) and keeps a 2-bit code per position
+//      (min(max(step, 1), 4) - 1) and a bit mask "dead": the chain ends here,
+//      i + max(step, 1) >= n (which holds for every i >= n as well). On the
+//      fast path, every step 1..4 and the segment's end 4 or more before n,
+//      no position is dead and the codes are the steps less 1, packed by
+//      multiply-adds.
+//   2. Segment maps. The state of a chain at a segment boundary is its entry
+//      offset 0..3 into the next segment, or DEAD. A segment's map sends each
+//      of the five states to the state at its end (five 3-bit fields; DEAD
+//      always to DEAD), computed by one backward pass over the 32 positions
+//      with the exits of the next four positions in a window (on the fast
+//      path four bytes, one byte permute a position).
+//      Why these maps are exact: let every position i of a block with
+//      i + max(step[i], 1) < n have max(step[i], 1) <= 4. A chain that
+//      enters a segment [b, b + 32) at b + e, e in 0..3, moves by steps of
+//      at most 4 until it ends or first stands at or past b + 32, which is
+//      then at most b + 35: entry 0..3 of the next segment. Its course
+//      depends on e alone. A dead position ends it where the reference ends
+//      it (i >= n: the reference's cursor freezes unmarked; i + s > n: it
+//      goes FAR; i + s = n: it lands on n, which it never leaves and never
+//      marks). Block boundaries are segment boundaries (512 = 16 x 32) and
+//      every exit offset is at most 3, so the reference's block-end rule
+//      never fires in such a block, and composing the segment maps gives
+//      the reference's block tables.
+//   3. The general path: a block that holds a position with i + step < n and
+//      step > 4 (no lanes kind writes one; the contract allows it) is found
+//      by a warp vote. Its 16 threads take the reference's walk over its
+//      steps in device memory: lanes 0-3 of the half-warp walk from entries
+//      0..3 (and lane 4 from the start, in the start's block) to the block's
+//      exit, whose offset past 3 ends the chain; the block's map replaces
+//      the first segment's, and the other 15 segments take the identity.
+//      The block-end rule lives only here. After the look-back one thread
+//      walks again from the block's entry and sets the mark bits in shared
+//      memory.
+//   4. The start as a map. The chain enters the stream DEAD. Segments before
+//      the start's keep their maps (DEAD goes to DEAD); the start's segment
+//      (or block, on the general path) maps every state to the exit of the
+//      walk from start's own offset: a constant map. This equals the
+//      reference's identity tables up to the start block plus its e0.
+//   5. Composition inside a tile: an inclusive scan of the segment maps by
+//      shuffles (5 rounds a warp and round), then warp 0 scans the 16 warp
+//      maps (4 rounds): the tile's aggregate and every warp's exclusive
+//      map. Each thread keeps its codes, dead bits and exclusive map of each
+//      round in shared memory until the marks (in registers they spill).
+//   6. Composition across tiles: a decoupled look-back (Merrill and
+//      Garland, "Single-pass Parallel Prefix Scan with Decoupled
+//      Look-back", NVIDIA, 2016). Tiles are numbered in the order thread
+//      blocks start (an atomic ticket), so a tile waits only on tiles whose
+//      blocks already run. Each tile publishes one 32-bit status word: flag
+//      AGG with its aggregate map at once, flag INCL with the constant map
+//      of the state after it once its entry is known (INCL at once when its
+//      aggregate is constant). Warp 0 reads 32 predecessors at a time,
+//      waits until those up to the nearest INCL are published, and composes
+//      them by a shuffle tree (none when the nearest is INCL). Flag and map
+//      share one aligned word that carries nothing else, so the words are
+//      read and written relaxed at device scope: acquire and release
+//      ordering would order no other data and cost 1-2% (scripts/
+//      orbit_bound.py). The launcher zeroes ticket and words on the stream
+//      before each launch. Every thread applies its exclusive map to the
+//      tile's entry state, walks its segment forward once more in registers
+//      (a 32-bit window of reached positions) and stores its 32 mask bytes.
+//
+// What bounds it on this card (scripts/orbit_bound.py times variants of
+// this file): the loads and stores alone reach about 85% of the bound; the
+// walks and scans, and the look-back's waits for predecessors that have not
+// yet published, take the rest. Two rounds a tile halve the tiles to look
+// back over (one round: 8192 tiles at 64 MiB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kB = 512;          // block of the resolve (the reference's _ORBIT_BLOCK)
-constexpr int kBlocks = 32;      // 512-byte blocks a thread block stages
-constexpr int kThreads = 128;    // 4 seeds x 32 blocks in pass 1
-constexpr int kStride = kB + 2;  // uint16 codes a block in shared memory (spreads banks)
-constexpr uint16_t kEnd = kB + 4;     // the chain leaves past offset 3 or steps past n
-constexpr uint16_t kStop = 0x7FFF;    // the position is at or past n
-constexpr uint16_t kMark = 0x8000;    // pass 3: the chain visited this position
-constexpr int kDead = 4;              // transfer state of an ended chain
-constexpr int kScanThreads = 1024;
+constexpr int kB = 512;                      // block of the resolve (the reference's _ORBIT_BLOCK)
+constexpr int kSeg = 32;                     // positions a thread in a round
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpSpan = 32 * kSeg;         // 1024: two blocks a warp in a round
+constexpr int kRound = kWarps * kWarpSpan;   // 8192 positions a round
+constexpr int kRounds = 2;
+constexpr int kTile = kRounds * kRound;      // 16384 positions a thread block
+constexpr int kMaps = kRounds * kWarps;      // warp maps a tile: warp 0 scans them
+constexpr int kHalf = kB / kSeg;             // 16 lanes a block
+constexpr uint32_t kDead = 4;
 // the identity map on {0..4}, five 3-bit fields
 constexpr uint32_t kIdent = 0u | (1u << 3) | (2u << 6) | (3u << 9) | (4u << 12);
+constexpr uint32_t kOnes = 0x1249;  // 1 in every field
+constexpr uint32_t kExits = 0u | (1u << 3) | (2u << 6) | (3u << 9);  // positions 32..35
+constexpr uint32_t kFlagAgg = 1u << 16, kFlagIncl = 2u << 16, kMapBits = 0x7FFF;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+static_assert(kMaps <= 32, "warp 0 scans the warp maps of a tile");
 
-__device__ __forceinline__ uint16_t code_of(int32_t stv, int64_t i, int off, int64_t cap,
-                                            int64_t n) {
-  if (i >= n) return kStop;
-  const int64_t st = i < cap ? (int64_t)max(stv, 1) : 1;
-  return i + st <= n ? (uint16_t)min(off + st, (int64_t)kEnd) : kEnd;
-}
-
-// Stage the codes of this thread block's 512-byte blocks.
-__device__ __forceinline__ void load_codes(uint16_t* codes, const int32_t* __restrict__ step,
-                                           int64_t cap, int64_t n, int64_t blk0, int64_t nb) {
-  const int64_t base = blk0 * kB;
-  const int count = (int)min((int64_t)kBlocks, nb - blk0) * kB;
-  if (base + count <= cap && reinterpret_cast<uintptr_t>(step) % 16 == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(step + base);
-    constexpr int kInFlight = 8;
-    for (int q0 = threadIdx.x; q0 < count / 4; q0 += kThreads * kInFlight) {
-      int4 v[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int q = q0 + u * kThreads;
-        if (q < count / 4) v[u] = __ldg(s4 + q);
-      }
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int e = 4 * (q0 + u * kThreads);
-        if (e >= count) break;
-        uint16_t* c = codes + (e / kB) * kStride + e % kB;
-        const int off = e % kB;
-        c[0] = code_of(v[u].x, base + e, off, cap, n);
-        c[1] = code_of(v[u].y, base + e + 1, off + 1, cap, n);
-        c[2] = code_of(v[u].z, base + e + 2, off + 2, cap, n);
-        c[3] = code_of(v[u].w, base + e + 3, off + 3, cap, n);
-      }
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < count; e += kThreads) {  // the last thread block, a ragged edge
-    const int64_t i = base + e;
-    codes[(e / kB) * kStride + e % kB] = code_of(i < cap ? step[i] : 1, i, e % kB, cap, n);
-  }
-}
-
-// The exit state of the chain that enters a block at offset r.
-__device__ __forceinline__ int walk_exit(const uint16_t* c, int r) {
-  while (r < kB) {
-    const uint16_t v = c[r];
-    if (v == kStop) return kDead;
-    r = v;
-  }
-  return r < kB + 4 ? r - kB : kDead;
-}
-
-__device__ __forceinline__ int apply_map(uint32_t m, int x) { return (m >> (3 * x)) & 7; }
+__device__ __forceinline__ uint32_t apply_map(uint32_t m, uint32_t x) { return (m >> (3 * x)) & 7; }
 
 // `first`, then `then`
 __device__ __forceinline__ uint32_t compose(uint32_t first, uint32_t then) {
   uint32_t r = 0;
 #pragma unroll
-  for (int x = 0; x < 5; ++x) r |= (uint32_t)apply_map(then, apply_map(first, x)) << (3 * x);
+  for (int x = 0; x < 5; ++x) r |= apply_map(then, apply_map(first, x)) << (3 * x);
   return r;
 }
 
-// A block's exit table (one byte per entry offset 0..3) as a map on {0..4}.
-__device__ __forceinline__ uint32_t table_map(uint32_t word) {
-  return (word & 0xFF) | (((word >> 8) & 0xFF) << 3) | (((word >> 16) & 0xFF) << 6) |
-         (((word >> 24) & 0xFF) << 9) | (4u << 12);
+__device__ __forceinline__ uint32_t const_map(uint32_t x) { return x * kOnes; }
+__device__ __forceinline__ bool is_const(uint32_t m) { return m == const_map(m & 7); }
+
+// The int4 slot of a warp's 16-byte chunk q (0..255) of steps: lane q / 8's
+// eight chunks form one row, rotated by the lane, so that eight lanes that
+// read or write the same chunk of their rows touch eight bank groups.
+__device__ __forceinline__ int slot(int q) {
+  const int row = q >> 3;
+  return (row << 3) | ((q & 7) ^ (row & 7));
 }
 
-__global__ void __launch_bounds__(kThreads)
-orbit_transfer_kernel(const int32_t* __restrict__ step, int64_t cap, int64_t n, int64_t start,
-                      int64_t nb, uint32_t* __restrict__ trans, uint32_t* __restrict__ agg,
-                      int32_t* __restrict__ e0) {
-  __shared__ uint16_t codes[kBlocks * kStride];
-  __shared__ uint8_t exits[kBlocks][4];
-  const int64_t blk0 = (int64_t)blockIdx.x * kBlocks;
-  const int nk = (int)min((int64_t)kBlocks, nb - blk0);
-  load_codes(codes, step, cap, n, blk0, nb);
-  __syncthreads();
-  const int k = threadIdx.x % kBlocks, seed = threadIdx.x / kBlocks;
-  if (k < nk) {
-    const uint16_t* c = codes + k * kStride;
-    exits[k][seed] = (uint8_t)walk_exit(c, seed);
-    if (seed == 0 && blk0 + k == start / kB) *e0 = walk_exit(c, (int)(start % kB));
-  }
-  __syncthreads();
-  if (threadIdx.x < nk) {
-    const uint8_t* x = exits[threadIdx.x];
-    trans[blk0 + threadIdx.x] =
-        x[0] | ((uint32_t)x[1] << 8) | ((uint32_t)x[2] << 16) | ((uint32_t)x[3] << 24);
-  }
-  if (threadIdx.x == 0) {
-    // blocks at or before the start block are the identity, as the
-    // reference's Tshift
-    const int64_t sb = start / kB;
-    uint32_t f = kIdent;
-    for (int j = 0; j < nk; ++j) {
-      if (blk0 + j > sb) {
-        const uint8_t* x = exits[j];
-        f = compose(f, table_map(x[0] | ((uint32_t)x[1] << 8) | ((uint32_t)x[2] << 16) |
-                                 ((uint32_t)x[3] << 24)));
-      }
-    }
-    agg[blockIdx.x] = f;
-  }
+// Status words: flag and map in one aligned 32-bit word, which carries
+// nothing else, so relaxed accesses at device scope suffice (no fences).
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// cta_entry[c]: the state in which the chain enters thread block c's first
-// 512-byte block, if that block lies past the start block.
-__global__ void __launch_bounds__(kScanThreads)
-orbit_entry_kernel(const uint32_t* __restrict__ agg, const int32_t* __restrict__ e0p,
-                   int64_t nc, int32_t* __restrict__ cta_entry) {
-  __shared__ uint32_t pre[kScanThreads];
-  const int t = threadIdx.x;
-  const int64_t seg = (nc + kScanThreads - 1) / kScanThreads;
-  const int64_t c0 = min(nc, (int64_t)t * seg), c1 = min(nc, c0 + seg);
-  uint32_t f = kIdent;
-  for (int64_t c = c0; c < c1; ++c) f = compose(f, agg[c]);
-  pre[t] = f;
-  __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    uint32_t v = pre[t];
-    if (t >= d) v = compose(pre[t - d], v);
-    __syncthreads();
-    pre[t] = v;
-    __syncthreads();
-  }
-  const int e0 = *e0p;
-  int x = t == 0 ? e0 : apply_map(pre[t - 1], e0);
-  for (int64_t c = c0; c < c1; ++c) {
-    cta_entry[c] = x;
-    x = apply_map(agg[c], x);
-  }
+__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-orbit_mark_kernel(const int32_t* __restrict__ step, int64_t cap, int64_t n, int64_t start,
-                  int64_t nb, const uint32_t* __restrict__ trans,
-                  const int32_t* __restrict__ cta_entry, uint8_t* __restrict__ out) {
-  __shared__ uint16_t codes[kBlocks * kStride];
-  __shared__ int entry[kBlocks];
-  const int64_t blk0 = (int64_t)blockIdx.x * kBlocks;
-  const int nk = (int)min((int64_t)kBlocks, nb - blk0);
-  load_codes(codes, step, cap, n, blk0, nb);
-  if (threadIdx.x == 0) {
-    const int64_t sb = start / kB;
-    int x = cta_entry[blockIdx.x];
-    for (int j = 0; j < nk; ++j) {
-      const int64_t k = blk0 + j;
-      if (k < sb) {
-        entry[j] = -1;
-      } else if (k == sb) {
-        entry[j] = (int)(start % kB);
-      } else {
-        entry[j] = x == kDead ? -1 : x;
-        x = apply_map(table_map(trans[k]), x);
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < nk) {
-    uint16_t* c = codes + threadIdx.x * kStride;
-    int r = entry[threadIdx.x];
-    if (r >= 0) {
-      while (r < kB) {
-        const uint16_t v = c[r];
-        if (v == kStop) break;
-        c[r] = v | kMark;
-        r = v;
-      }
-    }
-  }
-  __syncthreads();
-  const int64_t base = blk0 * kB;
-  const int64_t lim = min(cap - base, (int64_t)kBlocks * kB);
-  for (int64_t e = 4 * (int64_t)threadIdx.x; e < lim; e += 4 * kThreads) {
-    uint32_t word = 0;
+// The forward walk through a segment from the positions set in `a` (bit p:
+// the chain stands at p), one of them at most. Returns the positions it
+// reaches; `exit_state` gets its entry into the next segment or DEAD.
+__device__ __forceinline__ uint32_t walk_segment(uint32_t a, uint64_t codes, uint32_t dead,
+                                                 uint32_t* exit_state) {
+  uint32_t reached = 0;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int64_t p = e + b;
-      const uint32_t bit = p < lim ? codes[(p / kB) * kStride + p % kB] >> 15 : 0u;
-      word |= bit << (8 * b);
+  for (int p = 0; p < kSeg; ++p) {
+    const uint32_t live = a & ~(dead >> p) & 1;
+    reached = __funnelshift_r(reached, a, 1);  // bit 0 of a in at the top
+    a = (a >> 1) | (live << ((uint32_t)(codes >> (2 * p)) & 3));
+  }
+  *exit_state = a ? (uint32_t)(__ffs(a) - 1) : kDead;
+  return reached;
+}
+
+// The reference's walk through the block at `bbase` from offset r, over
+// the steps in device memory (the general path's blocks are rare). Sets
+// bit r % 32 of mk[r / 32] for each position it reaches below n when mk is
+// given; returns the exit state (an exit offset past 3 ends the chain).
+__device__ uint32_t walk_block(const int32_t* __restrict__ step, int64_t cap, int64_t bbase,
+                               int64_t r, int64_t n, uint32_t* mk) {
+  while (r < kB) {
+    const int64_t i = bbase + r;
+    if (i >= n) return kDead;
+    if (mk) mk[r >> 5] |= 1u << (r & 31);
+    const int64_t sf = i < cap ? max(__ldg(step + i), 1) : 1;
+    if (i + sf >= n) return kDead;
+    r += sf;
+  }
+  return r - kB < 4 ? (uint32_t)(r - kB) : kDead;
+}
+
+// Warp 0 of tile `tile`: publish the aggregate, find the state in which the
+// chain enters the tile, publish the state after it. Returns the entry state.
+__device__ uint32_t look_back(uint32_t* status, int64_t tile, uint32_t agg, int lane) {
+  if (lane == 0) st_relaxed(status + tile, (is_const(agg) ? kFlagIncl : kFlagAgg) | agg);
+  uint32_t acc = kIdent;  // the maps of tiles pred + 1 .. tile - 1, in order
+  for (int64_t pred = tile - 1;;) {
+    const int64_t idx = pred - lane;  // lane 0 is the nearest predecessor
+    const uint32_t word = idx >= 0 ? ld_relaxed(status + idx) : kFlagIncl | const_map(kDead);
+    const uint32_t ready = __ballot_sync(kFull, word != 0);
+    const uint32_t stops = __ballot_sync(kFull, (word & kFlagIncl) != 0);
+    const int first = stops ? __ffs(stops) - 1 : 31;
+    const uint32_t need = first == 31 ? kFull : (2u << first) - 1;
+    if ((ready & need) != need) {
+      __nanosleep(32);
+      continue;
     }
-    if (e + 4 <= lim) {
-      *reinterpret_cast<uint32_t*>(out + base + e) = word;  // base + e is a multiple of 4
+    uint32_t v = lane <= first ? word & kMapBits : kIdent;
+    if (first > 0) {
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t o = __shfl_down_sync(kFull, v, d);
+        if (lane + d < 32) v = compose(o, v);  // the higher lane holds the earlier tiles
+      }
+    }
+    acc = compose(__shfl_sync(kFull, v, 0), acc);
+    if (stops) break;  // acc is constant now
+    pred -= 32;
+  }
+  const uint32_t entry = acc & 7;
+  if (lane == 0 && !is_const(agg))
+    st_relaxed(status + tile, kFlagIncl | const_map(apply_map(agg, entry)));
+  return entry;
+}
+
+__device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
+  return (nibble * 0x00204081u) & 0x01010101u;  // bit b to byte b
+}
+
+// Positions at or past n are never marked: the segment's bits below n.
+__device__ __forceinline__ uint32_t below_n(int nrem) {
+  return nrem >= kSeg ? kFull : nrem <= 0 ? 0u : (1u << nrem) - 1;
+}
+
+__device__ __forceinline__ int rem_of(int64_t n, int64_t base) {
+  return (int)max(min(n - base, (int64_t)1 << 30), (int64_t)-1);
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+orbit_kernel(const int32_t* __restrict__ step, int64_t cap, int64_t n, int64_t start,
+             uint32_t* __restrict__ ticket, uint32_t* __restrict__ status,
+             uint8_t* __restrict__ out, int aligned) {
+  __shared__ int4 stage[kWarps][kWarpSpan / 4];
+  // a thread's segment in each round: codes, dead bits, exclusive map
+  __shared__ uint4 kept[kRounds][kThreads];
+  __shared__ uint32_t block_marks[kWarps][32];
+  __shared__ uint32_t warp_map[kMaps];
+  __shared__ uint32_t warp_entry[kMaps];
+  __shared__ uint32_t tile_s;
+  if (threadIdx.x == 0) tile_s = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int64_t tile = tile_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = lane >> 4, j = lane & (kHalf - 1);
+  // round r of the tile starts at tbase + r * kRound for this warp
+  const int64_t tbase = tile * kTile + (int64_t)warp * kWarpSpan;
+  int4* st = stage[warp];
+  uint32_t general = 0, any_general = 0;  // bit r: this lane's block / the warp, in round r
+
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t wbase = tbase + (int64_t)r * kRound;
+    const int64_t base = wbase + (int64_t)lane * kSeg;
+    // 1. stage the warp's steps (past cap: 1) and read this segment's codes
+    if ((aligned & 1) && wbase + kWarpSpan <= cap) {
+      const int4* src = reinterpret_cast<const int4*>(step + wbase);
+      int4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __ldg(src + 32 * k + lane);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) st[slot(32 * k + lane)] = v[k];
     } else {
-      for (int b = 0; e + b < lim; ++b) out[base + e + b] = (uint8_t)(word >> (8 * b));
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int64_t i = wbase + 4 * (32 * k + lane);
+        int4 v;
+        v.x = i < cap ? step[i] : 1;
+        v.y = i + 1 < cap ? step[i + 1] : 1;
+        v.z = i + 2 < cap ? step[i + 2] : 1;
+        v.w = i + 3 < cap ? step[i + 3] : 1;
+        st[slot(32 * k + lane)] = v;
+      }
+    }
+    __syncwarp();
+    const int nrem = rem_of(n, base);
+    // The fast path: every step 1..4 and the segment's end 4 or more before
+    // n, so no position is dead; the codes are the steps less 1, packed by
+    // multiply-adds. Else each position's code and dead bit one by one.
+    uint32_t lo = 0, hi = 0, bad = 0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int4 v = st[slot(lane * 8 + c)];
+      const uint32_t a = v.x - 1, b = v.y - 1, e = v.z - 1, f = v.w - 1;
+      bad |= a | b | e | f;
+      const uint32_t byte = ((f * 4 + e) * 4 + b) * 4 + a;
+      if (c < 4) lo |= byte << (8 * c);
+      else hi |= byte << (8 * (c - 4));
+    }
+    uint64_t codes = lo | ((uint64_t)hi << 32);
+    uint32_t dead = 0;
+    bool big = false;
+    const bool fast = bad < 4 && nrem >= kSeg + 4;
+    if (!fast) {
+      codes = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int4 v = st[slot(lane * 8 + c)];
+        const int32_t s4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 4 * c + e;
+          const int sf = max(s4[e], 1);
+          const bool d = sf >= nrem - p;
+          dead |= (uint32_t)d << p;
+          big |= sf > 4 && !d;
+          codes |= (uint64_t)(min(sf, 4) - 1) << (2 * p);
+        }
+      }
+    }
+    __syncwarp();  // the next round stages over these steps
+
+    // 2. the segment's map, by the exits of the next four positions
+    uint32_t map;
+    if (fast) {
+      // the four exits as bytes: each position takes byte `code` of the
+      // window and shifts it in, one byte permute
+      uint32_t w = 0x03020100u;
+#pragma unroll
+      for (int p = kSeg - 1; p >= 0; --p)
+        w = __byte_perm(w, 0, ((uint32_t)(codes >> (2 * p)) & 3) | 0x2100);
+      map = (w & 7) | ((w >> 5) & (7u << 3)) | ((w >> 10) & (7u << 6)) | ((w >> 15) & (7u << 9)) |
+            (kDead << 12);
+    } else {
+      uint32_t w = kExits;
+#pragma unroll
+      for (int p = kSeg - 1; p >= 0; --p) {
+        const uint32_t e =
+            (dead >> p) & 1 ? kDead : (w >> (3 * ((uint32_t)(codes >> (2 * p)) & 3))) & 7;
+        w = ((w << 3) | e) & 0xFFF;
+      }
+      map = w | (kDead << 12);
+    }
+    // 4. the start's segment: a constant map
+    if (start >= base && start < base + kSeg) {
+      uint32_t x;
+      walk_segment(1u << (start - base), codes, dead, &x);
+      map = const_map(x);
+    }
+
+    // 3. blocks with a step above 4 that does not end the chain
+    const uint32_t bigmask = __ballot_sync(kFull, big);
+    if (bigmask) {
+      const bool gen = (bigmask >> (kHalf * half)) & 0xFFFF;
+      const int64_t bbase = wbase + (int64_t)kB * half;
+      const bool start_block = start >= bbase && start < bbase + kB;
+      uint32_t x = kDead;
+      if (gen && (j < 4 || (j == 4 && start_block)))
+        x = walk_block(step, cap, bbase, j < 4 ? j : start - bbase, n, nullptr);
+      const int lead = lane & kHalf;
+      const uint32_t e0 = __shfl_sync(kFull, x, lead), e1 = __shfl_sync(kFull, x, lead + 1),
+                     e2 = __shfl_sync(kFull, x, lead + 2), e3 = __shfl_sync(kFull, x, lead + 3),
+                     es = __shfl_sync(kFull, x, lead + 4);
+      if (gen)
+        map = j ? kIdent
+                : start_block ? const_map(es)
+                              : e0 | (e1 << 3) | (e2 << 6) | (e3 << 9) | (kDead << 12);
+      general |= (uint32_t)gen << r;
+      any_general |= 1u << r;
+    }
+
+    // 5. composition inside the tile: the warp's segments in this round
+    uint32_t inc = map;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t o = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc = compose(o, inc);
+    }
+    uint32_t excl = __shfl_up_sync(kFull, inc, 1);
+    if (lane == 0) excl = kIdent;
+    if (lane == 31) warp_map[r * kWarps + warp] = inc;
+    kept[r][threadIdx.x] = make_uint4((uint32_t)codes, (uint32_t)(codes >> 32), dead, excl);
+  }
+  __syncthreads();
+
+  // 6. composition across tiles
+  if (warp == 0) {
+    uint32_t wm = lane < kMaps ? warp_map[lane] : kIdent;
+#pragma unroll
+    for (int d = 1; d < kMaps; d <<= 1) {
+      const uint32_t o = __shfl_up_sync(kFull, wm, d);
+      if (lane >= d) wm = compose(o, wm);
+    }
+    const uint32_t agg = __shfl_sync(kFull, wm, kMaps - 1);
+    uint32_t wex = __shfl_up_sync(kFull, wm, 1);
+    if (lane == 0) wex = kIdent;
+    const uint32_t entry = look_back(status, tile, agg, lane);
+    if (lane < kMaps) warp_entry[lane] = apply_map(wex, entry);
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    const int64_t wbase = tbase + (int64_t)r * kRound;
+    const int64_t base = wbase + (int64_t)lane * kSeg;
+    const uint4 k = kept[r][threadIdx.x];
+    const uint32_t x = apply_map(k.w, warp_entry[r * kWarps + warp]);
+    // the marks: a forward walk in registers, or the general path's walk
+    uint32_t mk;
+    if ((any_general >> r) & 1) {
+      const int64_t bbase = wbase + (int64_t)kB * half;
+      block_marks[warp][lane] = 0;
+      __syncwarp();
+      if (((general >> r) & 1) && j == 0) {
+        const int64_t from = start >= bbase && start < bbase + kB ? start - bbase
+                             : x < 4                             ? (int64_t)x
+                                                                 : (int64_t)kB;
+        walk_block(step, cap, bbase, from, n, block_marks[warp] + kHalf * half);
+      }
+      __syncwarp();
+    }
+    if ((general >> r) & 1) {
+      mk = block_marks[warp][lane];
+    } else {
+      const bool has_start = start >= base && start < base + kSeg;
+      uint32_t unused;
+      mk = walk_segment(has_start ? 1u << (start - base) : x < 4 ? 1u << x : 0u,
+                        k.x | ((uint64_t)k.y << 32), k.z, &unused);
+    }
+    mk &= below_n(rem_of(n, base));
+
+    if ((aligned & 2) && base + kSeg <= cap) {
+      uint4 lo, hi;
+      lo.x = spread4(mk & 0xF);
+      lo.y = spread4((mk >> 4) & 0xF);
+      lo.z = spread4((mk >> 8) & 0xF);
+      lo.w = spread4((mk >> 12) & 0xF);
+      hi.x = spread4((mk >> 16) & 0xF);
+      hi.y = spread4((mk >> 20) & 0xF);
+      hi.z = spread4((mk >> 24) & 0xF);
+      hi.w = spread4(mk >> 28);
+      uint4* o = reinterpret_cast<uint4*>(out + base);
+      o[0] = lo;
+      o[1] = hi;
+    } else {
+      for (int p = 0; p < kSeg && base + p < cap; ++p) out[base + p] = (uint8_t)((mk >> p) & 1);
     }
   }
 }
 
 }  // namespace
 
-// Enqueue the three passes on `stream`. scratch: int32[nb + 2 * nc + 1]
-// with nb = ceil(cap / 512) and nc = ceil(nb / 32) (exit tables, thread
-// block maps and entries, the start block's exit); out: bool[cap], 4-byte
-// aligned. Requires 0 <= start < 512 * nb.
+// Enqueue the kernel on `stream`. scratch: uint32[ceil(cap / 16384) + 1]
+// (the tile ticket, then one status word a tile), zeroed here on the
+// stream; out: bool[cap]. Requires 0 <= start < 512 * ceil(cap / 512).
 extern "C" int orbit_resolve_launch(const void* step, int64_t cap, int64_t n, int64_t start,
                                     void* scratch, void* out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int64_t nb = (cap + kB - 1) / kB;
-  const int64_t nc = (nb + kBlocks - 1) / kBlocks;
+  const int64_t tiles = (cap + kTile - 1) / kTile;
   if (cap <= 0 || start < 0 || start >= nb * kB) return (int)cudaErrorInvalidValue;
-  uint32_t* trans = static_cast<uint32_t*>(scratch);
-  uint32_t* agg = trans + nb;
-  int32_t* cta_entry = reinterpret_cast<int32_t*>(agg + nc);
-  int32_t* e0 = cta_entry + nc;
   cudaStream_t s = (cudaStream_t)stream;
-  const int32_t* st = static_cast<const int32_t*>(step);
-  orbit_transfer_kernel<<<(unsigned)nc, kThreads, 0, s>>>(st, cap, n, start, nb, trans, agg, e0);
-  e = cudaGetLastError();
+  e = cudaMemsetAsync(scratch, 0, (size_t)(tiles + 1) * sizeof(uint32_t), s);
   if (e != cudaSuccess) return (int)e;
-  orbit_entry_kernel<<<1, kScanThreads, 0, s>>>(agg, e0, nc, cta_entry);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  orbit_mark_kernel<<<(unsigned)nc, kThreads, 0, s>>>(st, cap, n, start, nb, trans, cta_entry,
-                                                      static_cast<uint8_t*>(out));
+  uint32_t* ticket = static_cast<uint32_t*>(scratch);
+  const int aligned = (reinterpret_cast<uintptr_t>(step) % 16 == 0 ? 1 : 0) |
+                      (reinterpret_cast<uintptr_t>(out) % 16 == 0 ? 2 : 0);
+  orbit_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(static_cast<const int32_t*>(step), cap, n,
+                                                    start, ticket, ticket + 1,
+                                                    static_cast<uint8_t*>(out), aligned);
   return (int)cudaGetLastError();
 }

@@ -90,6 +90,7 @@ def _gather2(table: torch.Tensor, b: torch.Tensor,
 _ORBIT_BLOCK = 512  # blocked-resolve block width
 _ORBIT_DEAD = 4  # transfer state: the chain ended (pending/stream end)
 _ORBIT_FAR = 1 << 20  # local "chain gone" sentinel (>> block + max step)
+_ORBIT_TILE = 16384  # positions a thread block of csrc/orbit_resolve.cu
 
 
 def _orbit_cols(step: torch.Tensor, n: int):
@@ -189,7 +190,7 @@ _ORBIT_ARGS = [
     ctypes.c_int64,  # cap
     ctypes.c_int64,  # n
     ctypes.c_int64,  # start
-    ctypes.c_void_p,  # scratch: int32[nb + 2 * nc + 1]
+    ctypes.c_void_p,  # scratch: int32[ceil(cap / 16384) + 1]
     ctypes.c_void_p,  # out: bool[cap]
     ctypes.c_int,  # device index
     ctypes.c_void_p,  # cudaStream_t
@@ -220,8 +221,9 @@ def _orbit_mask_blocked(step: torch.Tensor, n: int, start: int) -> torch.Tensor:
         return torch.zeros(cap, dtype=torch.bool, device=step.device)
     out = torch.empty(cap, dtype=torch.bool, device=step.device)
     step = step.contiguous()
-    nc = -(-nb // 32)  # thread blocks of the kernel, 32 blocks of 512 each
-    scratch = torch.empty(nb + 2 * nc + 1, dtype=torch.int32,
+    # the look-back's ticket and one status word a tile (zeroed by the
+    # launcher on the stream)
+    scratch = torch.empty(-(-cap // _ORBIT_TILE) + 1, dtype=torch.int32,
                           device=step.device)
     from .. import _build
 

@@ -173,99 +173,246 @@ def test_multi_start_and_doubling_orbits_equal_the_reference():
                                           start)), (trial, start))
 
 
-_B, _K, _STOP, _DEAD = 512, 32, 0x7FFF, 4
+_B, _SEG, _DEAD = 512, 32, 4
+_IDENT = 0 | 1 << 3 | 2 << 6 | 3 << 9 | 4 << 12
+_EXITS = 0 | 1 << 3 | 2 << 6 | 3 << 9
+_AGG, _INCL, _MAP = 1 << 16, 2 << 16, 0x7FFF
 
 
-def _kernel_mirror(step, n, start):
-    """csrc/orbit_resolve.cu step by step (one Python loop a thread): the
-    codes of pass 1 and 3, the walks, the thread blocks' maps, the
-    1024-thread segment compositions and Kogge-Stone scan of pass 2, and
-    the per-block entries of pass 3."""
-    cap = len(step)
-    nb = -(-cap // _B)
-    nc = -(-nb // _K)
-    sb = start // _B
+def _apply(m, x):
+    return (m >> (3 * x)) & 7
 
-    def code(i):
+
+def _compose(first, then):
+    r = 0
+    for x in range(5):
+        r = r | (_apply(then, _apply(first, x)) << (3 * x))
+    return r
+
+
+def _const(x):
+    return x * 0x1249
+
+
+def _is_const(m):
+    return m == _const(m & 7)
+
+
+def _walk_block(s, bbase, r, n, marks=None):
+    """The kernel's `walk_block`: the reference's walk through one block
+    of 512 from offset r over its steps `s`; returns the exit state."""
+    while r < _B:
+        i = bbase + r
         if i >= n:
-            return _STOP
-        st = max(int(step[i]), 1) if i < cap else 1
-        return min(i % _B + st, _B + 4) if i + st <= n else _B + 4
+            return _DEAD
+        if marks is not None:
+            marks[r] = True
+        sf = max(int(s[r]), 1)
+        if i + sf >= n:
+            return _DEAD
+        r += sf
+    return r - _B if r - _B < 4 else _DEAD
 
-    codes = [[code(k * _B + o) for o in range(_B)] for k in range(nb)]
 
-    def walk_exit(c, r):
-        while r < _B:
-            if c[r] == _STOP:
-                return _DEAD
-            r = c[r]
-        return r - _B if r < _B + 4 else _DEAD
+def _look_back(agg, rng):
+    """The kernel's decoupled look-back over the tiles' aggregate maps,
+    with the tiles' turns in a random order: a turn publishes the
+    aggregate (INCL at once when it is constant) or reads one window of 32
+    predecessors, and leaves it for a later turn when one before the
+    nearest INCL is unpublished. Returns each tile's entry state."""
+    T = len(agg)
+    status = [0] * T
+    acc, pred = [_IDENT] * T, [t - 1 for t in range(T)]
+    entry = [None] * T
+    published = [False] * T
+    todo = list(range(T))
+    while todo:
+        t = todo[int(rng.integers(len(todo)))]
+        if not published[t]:
+            status[t] = (_INCL if _is_const(agg[t]) else _AGG) | agg[t]
+            published[t] = True
+            continue
+        words = [status[i] if i >= 0 else _INCL | _const(_DEAD)
+                 for i in range(pred[t], pred[t] - 32, -1)]
+        stops = [k for k, w in enumerate(words) if w & _INCL]
+        first = stops[0] if stops else 31
+        if not all(words[:first + 1]):
+            continue  # the kernel spins here
+        v = [w & _MAP if k <= first else _IDENT for k, w in enumerate(words)]
+        d = 1
+        # the shuffle tree (none when the nearest is INCL): the higher
+        # lane holds the earlier tiles
+        while first > 0 and d < 32:
+            v = [_compose(v[k + d], v[k]) if k + d < 32 else v[k]
+                 for k in range(32)]
+            d *= 2
+        acc[t] = _compose(v[0], acc[t])
+        if not stops:
+            pred[t] -= 32
+            continue
+        assert _is_const(acc[t])
+        entry[t] = acc[t] & 7
+        if not _is_const(agg[t]):
+            status[t] = _INCL | _const(_apply(agg[t], entry[t]))
+        todo.remove(t)
+    return np.array(entry, np.int64)
 
-    def comp(f, g):  # f, then g
-        return [g[f[x]] for x in range(5)]
 
-    ident = [0, 1, 2, 3, 4]
-    trans = [[walk_exit(codes[k], s) for s in range(4)] + [_DEAD]
-             for k in range(nb)]
-    e0 = walk_exit(codes[sb], start % _B)
-    agg = []
-    for c in range(nc):
-        f = ident
-        for k in range(c * _K, min(nb, (c + 1) * _K)):
-            if k > sb:
-                f = comp(f, trans[k])
-        agg.append(f)
-    T = 1024
-    seg = -(-nc // T)
-    spans = [range(min(nc, t * seg), min(nc, t * seg + seg)) for t in range(T)]
-    pre = []
-    for span in spans:
-        f = ident
-        for c in span:
-            f = comp(f, agg[c])
-        pre.append(f)
+def _scan32(maps, width):
+    """Inclusive scan of the maps along the last axis by `shfl_up` rounds
+    over `width` lanes, as the kernel's warps do."""
+    inc = maps.copy()
+    lane = np.arange(maps.shape[-1])
     d = 1
-    while d < T:
-        pre = [pre[t] if t < d else comp(pre[t - d], pre[t]) for t in range(T)]
+    while d < width:
+        o = np.roll(inc, d, axis=-1)
+        inc = np.where(lane >= d, _compose(o, inc), inc)
         d *= 2
-    cta_entry = [0] * nc
-    for t, span in enumerate(spans):
-        x = e0 if t == 0 else pre[t - 1][e0]
-        for c in span:
-            cta_entry[c] = x
-            x = agg[c][x]
-    out = np.zeros(cap, bool)
-    for c in range(nc):
-        x = cta_entry[c]
-        for k in range(c * _K, min(nb, (c + 1) * _K)):
-            if k < sb:
-                r = -1
-            elif k == sb:
-                r = start % _B
-            else:
-                r = -1 if x == _DEAD else x
-                x = trans[k][x]
-            while 0 <= r < _B and codes[k][r] != _STOP:
-                if k * _B + r < cap:
-                    out[k * _B + r] = True
-                r = codes[k][r]
-    return out
+    return inc
 
 
-@pytest.mark.parametrize("seed", [7, 8])
-def test_orbit_kernel_design_equals_the_plain_version(seed):
-    """The kernel's design, mirrored step by step, on caps that span
-    several thread blocks (32 blocks of 512 each), starts in later
-    blocks and thread blocks, ends short of the cap, and steps above 4
-    (a chain that leaves a block past offset 3 ends, in both)."""
-    rng = np.random.default_rng(seed)
-    for trial, (cap, top) in enumerate(((40000, 5), (33000, 5), (20000, 9),
-                                        (1500, 5))):
-        step, n = _steps(rng, cap, top)
-        for start in (0, 3, 515, 600, 17000 % cap):
-            want = TC._orbit_mask_blocked_ref(torch.from_numpy(step), n, start)
-            got = _kernel_mirror(step, n, start)
-            assert (got == want.numpy()).all(), (trial, cap, n, start)
+def _kernel_mirror(step, n, start, maps=16, seed=0):
+    """csrc/orbit_resolve.cu step by step, every segment of 32 positions
+    at once (a row of numpy arrays a thread): the codes and dead bits,
+    the backward pass that gives each segment's map, the start's
+    constant map, the general path of blocks with a live step above 4,
+    the scans of each warp's 32 segments and of a tile's `maps` warp
+    maps, the look-back with the tiles in a shuffled order, and the
+    forward walks that mark. A tile is `maps` spans of 1024 positions in
+    order: the kernel's two rounds of 8 warps make 16; fewer make more
+    tiles of a cap, more make fewer."""
+    cap = len(step)
+    tile = maps * 32 * _SEG
+    ntiles = -(-cap // tile)
+    total = ntiles * tile
+    s = np.ones(total, np.int64)
+    s[:cap] = step
+    nseg = total // _SEG
+    base = np.arange(nseg, dtype=np.int64) * _SEG
+    nrem = np.clip(n - base, -1, 1 << 30)
+    raw = s.reshape(nseg, _SEG)
+    sf = np.maximum(raw, 1)
+    p = np.arange(_SEG)
+    # the fast path: steps 1..4 and the segment's end 4 or more before n
+    fast = ((raw >= 1) & (raw <= 4)).all(axis=1) & (nrem >= _SEG + 4)
+    dead = (sf >= nrem[:, None] - p) & ~fast[:, None]
+    big = ((sf > 4) & ~dead).any(axis=1)
+    code = np.minimum(sf, 4) - 1
+
+    w = np.full(nseg, _EXITS, np.int64)
+    wb = np.full(nseg, 0x03020100, np.int64)  # the fast path's bytes
+    for q in range(_SEG - 1, -1, -1):
+        e = np.where(dead[:, q], _DEAD, (w >> (3 * code[:, q])) & 7)
+        w = ((w << 3) | e) & 0xFFF
+        wb = ((wb << 8) | ((wb >> (8 * code[:, q])) & 0xFF)) & 0xFFFFFFFF
+    byte_map = ((wb & 7) | ((wb >> 5) & (7 << 3)) | ((wb >> 10) & (7 << 6))
+                | ((wb >> 15) & (7 << 9)))
+    seg_map = np.where(fast, byte_map, w) | (_DEAD << 12)
+
+    def walk(a):  # a: bit p = the chain stands at p, one a segment
+        reached = np.zeros((nseg, _SEG), bool)
+        for q in range(_SEG):
+            live = (a & ~dead[:, q] & 1).astype(np.int64)
+            reached[:, q] = (a & 1).astype(bool)
+            a = (a >> 1) | (live << code[:, q])
+        low = a & -a
+        ex = np.where(a > 0, np.log2(np.maximum(low, 1)).astype(np.int64),
+                      _DEAD)
+        return reached, ex
+
+    ss, so = start // _SEG, start % _SEG
+    a0 = np.zeros(nseg, np.int64)
+    a0[ss] = 1 << so
+    seg_map[ss] = _const(walk(a0)[1][ss])
+
+    nblk = total // _B
+    general = big.reshape(nblk, _B // _SEG).any(axis=1)
+    sb = start // _B
+    for k in np.flatnonzero(general):
+        blk = s[k * _B:(k + 1) * _B]
+        ex = [_walk_block(blk, k * _B, e, n) for e in range(4)]
+        first = k * (_B // _SEG)
+        seg_map[first:first + _B // _SEG] = _IDENT
+        seg_map[first] = (_const(_walk_block(blk, k * _B, start % _B, n))
+                          if k == sb else
+                          ex[0] | ex[1] << 3 | ex[2] << 6 | ex[3] << 9
+                          | _DEAD << 12)
+
+    inc = _scan32(seg_map.reshape(-1, 32), 32)
+    excl = np.roll(inc, 1, axis=1)
+    excl[:, 0] = _IDENT
+    wm = _scan32(inc[:, 31].reshape(ntiles, maps), maps)
+    wex = np.roll(wm, 1, axis=1)
+    wex[:, 0] = _IDENT
+    entry = _look_back([int(m) for m in wm[:, -1]],
+                       np.random.default_rng(seed))
+    warp_entry = _apply(wex, entry[:, None]).reshape(-1)
+    x = _apply(excl, warp_entry[:, None]).reshape(nseg)
+
+    a = np.where(x < 4, 1 << np.minimum(x, 3), 0)
+    a[ss] = 1 << so
+    marks = walk(a)[0]
+    for k in np.flatnonzero(general):
+        blk_marks = np.zeros(_B, bool)
+        xe = int(x[k * (_B // _SEG)])
+        r = start % _B if k == sb else xe if xe < 4 else _B
+        _walk_block(s[k * _B:(k + 1) * _B], k * _B, r, n, blk_marks)
+        marks[k * (_B // _SEG):(k + 1) * (_B // _SEG)] = blk_marks.reshape(
+            -1, _SEG)
+    marks &= p < nrem[:, None]
+    return marks.reshape(-1)[:cap]
+
+
+def _stateful_steps(cap):
+    """Steps like the lanes' on firmware: runs of 1 (zeros, 0xFF), of 2
+    (two-byte text) and of 1..4 mixed."""
+    rng = np.random.default_rng(5)
+    step = np.ones(cap, np.int32)
+    for o in range(0, cap, 3000):
+        kind = (o // 3000) % 3
+        if kind == 1:
+            step[o:o + 3000] = 2
+        elif kind == 2:
+            step[o:o + 3000] = rng.integers(1, 5, len(step[o:o + 3000]))
+    return step
+
+
+# (cap, top step + 1, n, starts, warp maps a tile): caps over several
+# tiles, more tiles than a look-back window (1 map: tiles of 1024), a
+# start in the last tile, n = 0, n below the start, steps up to 8, ragged
+# ends
+_MIRROR_CASES = {
+    "tiles": (110000, 5, None, (0, 3, 515, 600, 70000), 16),
+    "tiles_of_one_round": (60000, 5, None, (0, 3, 20000), 8),
+    "larger_tiles": (140000, 5, None, (0, 40000), 32),
+    "window": (45000, 5, None, (0, 4, 9000), 1),
+    "steps_up_to_8": (40000, 9, None, (0, 3, 515, 600), 16),
+    "last_tile_start": (70000, 5, 70000, (69800, 69999, 65537), 16),
+    "n_zero": (20000, 5, 0, (0, 7), 16),
+    "n_below_start": (20000, 9, 9000, (9001, 12000, 600), 2),
+    "ragged": (1500, 9, None, (0, 3, 515), 16),
+    "stateful": (70001, 5, 70001, (0, 4), 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MIRROR_CASES))
+def test_orbit_kernel_design_equals_the_plain_version(case):
+    """The kernel's design, mirrored step by step, against its plain
+    version `_orbit_mask_blocked_ref` (the reference's blocked resolve):
+    a chain that leaves a block past offset 3 ends in both."""
+    cap, top, n, starts, maps = _MIRROR_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if case == "stateful":
+        step = _stateful_steps(cap)
+    else:
+        step, n0 = _steps(rng, cap, top)
+        n = n0 if n is None else n
+    for k, start in enumerate(starts):
+        want = TC._orbit_mask_blocked_ref(torch.from_numpy(step), n, start)
+        got = _kernel_mirror(step, n, start, maps, seed=k)
+        assert (got == want.numpy()).all(), (case, cap, n, start)
+        if n > start:
+            assert want.any(), (case, start)  # a chain to follow
 
 
 def test_orbit_wrapper_checks_its_arguments():
