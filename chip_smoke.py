@@ -38,13 +38,23 @@ printed:
    over 64 MiB of `corpus.stateful_corpus` must equal the numpy oracle
    `_feed_from_host_events` array by array, extras included, and on a
    4 MiB cut the port's CPU feed and the card's feed in 256 KiB pieces;
+   (2d) the feed's report clamp `_report_clamp` (CUDA,
+   `csrc/report_clamp.cu`) must equal its plain version `_report_clamp_ref`
+   (`torch.cummax`) bit for bit, the mask and the last running max, at
+   n = 1, a tile of 4096 less one, a tile, a tile and one, 8 MiB, 8 MiB + 6
+   and 64 MiB, on random lanes with no event, every position an event,
+   reports past the chars' last bytes, with a carried max of -1, inside
+   the piece and past its end; on lanes sliced 1, 2, 4 and 16 positions
+   into their allocations; on the lanes of the trio's feed pieces of the 64
+   MiB bench corpus (the whole, an 8 MiB piece from its middle, its last 8
+   MiB + 6); and on two launches back to back over different data;
 3. the buffered main path - the port's CLI scan
    (`stringsext_tpu_torch.run.run`, device "cuda") of a 64 MiB bench
    corpus by name with UTF-8 + UTF-16LE +
    UTF-16BE must write the same bytes as the port's host path
    (`run.run_host`: the whole stream through the C++ emitter, no hot
-   map); the kernel's launch counter is reset just before the port's run
-   and must be positive after it;
+   map); the launch counters of `swar_counts` and of the report clamp are
+   reset just before the port's run and must be positive after it;
 4. goldens - every frozen golden case of tests/golden_extra (the CJK and
    ISO-2022-JP ones included) must come out byte for byte through the
    port on the card and through `run_host`, and (7d) the single-file
@@ -224,7 +234,11 @@ H100 SXM; its operations are 32-bit integer logic, for which the data
 sheet gives no peak, so no kernel's bound is by operations. The orbit's
 bound counts its step field read once and its mask written once (5 bytes
 a position), as its design moves them; it is also timed on the 8 MiB
-piece of the streamed path.
+piece of the streamed path. The report clamp's bound counts 12 bytes a
+position (three bool and two int32 lanes read, the mask written); it is
+timed on the UTF-8 lanes of an 8 MiB and a 64 MiB trio piece, beside its
+plain version and the library's `torch.cummax` + clamp + compare
+(`library_ms`, the yardstick the port no longer calls).
 
 The script imports torch, numpy and the port; it never imports jax or
 the JAX package and asserts so. Its last two lines are a JSON object
@@ -271,9 +285,11 @@ KERNELS = {
     # code the JAX package leaves to XLA (no Pallas kernel)
     "orbit_resolve": ("orbit_resolve.cu",
                       "classify_cjk.py::_orbit_mask_blocked"),
+    "report_clamp": ("report_clamp.cu",
+                     "device_events.py::runtable_feed:344 (lax.cummax)"),
 }
 # what each phase learns about a kernel: "err", "launches" {path: n},
-# "ms" (min, median, max), "single_ms", "plain_ms", "bytes"
+# "ms" (min, median, max), "single_ms", "plain_ms", "bytes", "library_ms"
 RESULTS = {name: {"err": 0, "launches": {}} for name in KERNELS}
 
 
@@ -727,6 +743,135 @@ def phase_feeds(dev, stateful, oracles):
         f"256 KiB pieces ({time.perf_counter() - t0:.1f} s)")
 
 
+def random_clamp_lanes(dev, n, case, seed):
+    """(start, pending, acc, report_off, length) on `dev` over n positions,
+    from a seed: "random" (events a third of the positions, lengths 1-4,
+    reports at the char's last byte), "none" (no event), "all" (every
+    position an event) or "clamped" (a tenth of the reports 1-39 bytes
+    past the char's last byte)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    length = r.integers(1, 5, n, dtype=np.int32)
+    report_off = length - 1
+    start = r.random(n) < 0.35
+    pending = r.random(n) < 0.05
+    if case == "none":
+        start[:] = False
+    elif case == "all":
+        start[:] = True
+        pending[:] = False
+    elif case == "clamped":
+        late = r.random(n) < 0.1
+        report_off = np.where(late, report_off + r.integers(1, 40, n),
+                              report_off).astype(np.int32)
+    acc = start & (r.random(n) < 0.8)
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (start, pending, acc, report_off, length))
+
+
+def clamp_lanes(dev, data, enc, start, end):
+    """The lanes the feed hands the report clamp for the piece [start,
+    end) of `data` under the mission `enc` with the default filters:
+    slices past the piece's context, with the accept mask."""
+    from stringsext_tpu_torch.encodings import encoding_kind
+    from stringsext_tpu_torch.mission import Missions
+    from stringsext_tpu_torch.ops import device_events as de
+    from stringsext_tpu_torch.ops.runs import accept_mask, filter_words
+
+    m = Missions.new(flag_encoding=[enc]).v[0]
+    lanes = de._halo_piece_lanes(data, encoding_kind(m.encoding_name),
+                                 m.encoding_name, start, end, dev)
+    acc = accept_mask(lanes, *filter_words(m))
+    return lanes.start, lanes.pending, acc, lanes.report_off, lanes.length
+
+
+def phase_report_clamp(dev, big):
+    """Phase 2d: the report clamp kernel against its plain version."""
+    from stringsext_tpu_torch.ops.device_events import (
+        _report_clamp,
+        _report_clamp_ref,
+    )
+
+    ncmp = 0
+
+    def check(what, lanes, lo, got=None):
+        nonlocal ncmp
+        got, last = got or _report_clamp(*lanes, lo)
+        want, want_last = _report_clamp_ref(*lanes, lo)
+        check_equal("report_clamp", what, got, want)
+        check_equal("report_clamp", f"{what}, last max", last.reshape(1),
+                    want_last.reshape(1))
+        ncmp += 1
+        return got
+
+    tile = 4096
+    for n in (1, tile - 1, tile, tile + 1, 8 * MIB, 8 * MIB + 6, 64 * MIB):
+        for case in ("random", "none", "all", "clamped"):
+            lanes = random_clamp_lanes(dev, n, case, seed=n)
+            for lo in (-1, n // 2, n + 5):
+                check(f"n {n} {case} lo {lo}", lanes, lo)
+    wide = random_clamp_lanes(dev, 8 * MIB + 64, "clamped", seed=3)
+    for off in (1, 2, 4, 16):
+        check(f"lanes sliced {off} positions in",
+              tuple(t[off:] for t in wide),
+              100)
+    feedable = 0
+    for enc in ("UTF-8", "UTF-16LE", "UTF-16BE"):
+        for s, e in ((0, 64 * MIB), (8 * MIB, 16 * MIB),
+                     (len(big) - 8 * MIB - 6, len(big))):
+            lanes = clamp_lanes(dev, big, enc, s, e)
+            for lo in (-1, 3, (e - s) // 2):
+                feedable += int(check(f"{enc} piece [{s}, {e}) lo {lo}",
+                                      lanes, lo).sum())
+    # two launches back to back on different data, each held to its plain
+    # version after both ran: a status word of the first left in the
+    # second's look-back would show
+    pair = [random_clamp_lanes(dev, 8 * MIB, "clamped", seed=k)
+            for k in (11, 12)]
+    got = [_report_clamp(*lanes, -1) for lanes in pair]
+    for k, lanes in enumerate(pair):
+        check(f"back-to-back launch {k}", lanes, -1, got[k])
+    say(f"phase 2d: {ncmp} report clamp comparisons ({feedable} feedable "
+        f"chars in the trio pieces), max abs difference "
+        f"{RESULTS['report_clamp']['err']} (tolerance 0)")
+
+
+def time_report_clamp(dev, big):
+    """The report clamp on the UTF-8 lanes of a trio piece of 8 MiB (the
+    streamed chunk) and of 64 MiB (the buffered piece): the kernel, its
+    plain version, and the library's `torch.cummax` + clamp + compare."""
+    from stringsext_tpu_torch.ops.device_events import (
+        _report_clamp,
+        _report_clamp_ref,
+    )
+
+    for s, e in ((8 * MIB, 16 * MIB), (0, 64 * MIB)):
+        n = e - s
+        lanes = clamp_lanes(dev, big, "UTF-8", s, e)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        rep = torch.where(lanes[0] & ~lanes[1], idx + lanes[3], -1)
+        target = idx + lanes[4] - 1
+        lib = cuda_ms(lambda: torch.clamp(torch.cummax(rep, dim=0).values,
+                                          min=-1) == target, reps=10, inner=1)
+        label = f"report_clamp, UTF-8 trio piece of {n} bytes"
+        kern = functools.partial(_report_clamp, *lanes, -1)
+        plain = functools.partial(_report_clamp_ref, *lanes, -1)
+        if n == 64 * MIB:
+            time_kernel("report_clamp", label, kern, plain, 12 * n)
+            RESULTS["report_clamp"]["library_ms"] = lib[1]
+        else:
+            t = cuda_ms(kern)
+            single = cuda_ms(kern, inner=1)[1]
+            bound = 12 * n / HBM_BYTES_PER_S * 1e3
+            say(f"{label}: kernel min/median/max {t[0]:.4f} / {t[1]:.4f} / "
+                f"{t[2]:.4f} ms a launch in runs of 10 (single launches: "
+                f"median {single:.4f}); bound {bound:.4f} ms "
+                f"({100 * bound / t[1]:.0f}% reached)")
+        say(f"{label}: library torch.cummax + clamp + compare min/median/max "
+            f"{lib[0]:.4f} / {lib[1]:.4f} / {lib[2]:.4f} ms")
+
+
 def time_swar_counts(dev, big, trio, other_sets):
     """`swar_counts` at SIZE: the trio in both modes (hot_only is the
     CLI's and the kernels line's), and two larger sets."""
@@ -830,26 +975,31 @@ def cli_scan(label, argv, dst, dev=None, stdin_path=None, stats=None,
 
 def phase_main_path(dev, tmp):
     from stringsext_tpu_torch.corpus import make_corpus
-    from stringsext_tpu_torch.ops import swar
+    from stringsext_tpu_torch.ops import device_events, swar
 
     src = os.path.join(tmp, "buffered.bin")
     make_corpus(BUFFERED_SIZE, seed=0).tofile(src)
     argv = ["-t", "x", "-e", "UTF-8", "-e", "UTF-16LE", "-e", "UTF-16BE", src]
     what = f"main path, {BUFFERED_SIZE // MIB} MiB trio"
     swar.swar_counts.launches = 0
+    device_events._report_clamp.launches = 0
     port = cli_scan(f"{what}, port on the card", argv,
                     os.path.join(tmp, "port.out"), dev)
     count_launches(f"cli flagship scan, {BUFFERED_SIZE // MIB} MiB",
-                   {"swar_counts": swar.swar_counts})
+                   {"swar_counts": swar.swar_counts,
+                    "report_clamp": device_events._report_clamp})
     launches = swar.swar_counts.launches
+    clamps = device_events._report_clamp.launches
     host = cli_scan(f"{what}, port host path (whole stream, no hot map)",
                     argv, os.path.join(tmp, "host.out"))
     if port != host:
         raise AssertionError(f"port output differs from run_host's: "
                              f"{port} != {host}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched swar_counts")
-    say(f"phase 3: outputs byte-identical; swar_counts launches {launches}")
+    if launches <= 0 or clamps <= 0:
+        raise AssertionError(f"the main path launched swar_counts {launches} "
+                             f"and the report clamp {clamps} times")
+    say(f"phase 3: outputs byte-identical; swar_counts launches {launches}, "
+        f"report clamp launches {clamps}")
     return src, host
 
 
@@ -1085,7 +1235,7 @@ def stateful_scans(dev, tmp, dst):
     buffered, feed on and off, in three turns with `run_host`; then the
     256 MiB streamed scan, feed on."""
     from stringsext_tpu_torch.corpus import STATEFUL_ENCODINGS, stateful_corpus
-    from stringsext_tpu_torch.ops import classify_cjk, swar
+    from stringsext_tpu_torch.ops import classify_cjk, device_events, swar
     from stringsext_tpu_torch.run import STREAM_CHUNK
 
     ssrc = os.path.join(tmp, "stateful.bin")
@@ -1094,7 +1244,8 @@ def stateful_scans(dev, tmp, dst):
                                          for a in ("-e", e)]
     swhat = f"{STATEFUL_SIZE // MIB} MiB {'+'.join(STATEFUL_ENCODINGS)}"
     kernels = {"swar_counts": swar.swar_counts,
-               "orbit_resolve": classify_cjk._orbit_mask_blocked}
+               "orbit_resolve": classify_cjk._orbit_mask_blocked,
+               "report_clamp": device_events._report_clamp}
     routes = ("run_host", "streamed, feed on", "buffered, feed on",
               "streamed, feed off", "buffered, feed off")
     outs, walls, peaks, seen = set(), {}, {}, {}
@@ -1116,12 +1267,14 @@ def stateful_scans(dev, tmp, dst):
                 continue
             n = {k: fn.launches for k, fn in kernels.items()}
             seen[route] = n
-            need = "orbit_resolve" if route.endswith("on") else "swar_counts"
-            if not n[need]:
+            need = (("orbit_resolve", "report_clamp") if route.endswith("on")
+                    else ("swar_counts",))
+            if not all(n[k] for k in need):
                 raise AssertionError(f"7b {route}: {need} never ran ({n})")
-            if route.endswith("off") and n["orbit_resolve"]:
-                raise AssertionError(f"7b {route}: the orbit ran without "
-                                     f"the feed")
+            if route.endswith("off") and (n["orbit_resolve"]
+                                          or n["report_clamp"]):
+                raise AssertionError(f"7b {route}: the feed's kernels ran "
+                                     f"without the feed ({n})")
             if turn == 0:
                 count_launches(f"cli stateful set {route}, "
                                f"{STATEFUL_SIZE // MIB} MiB",
@@ -1884,9 +2037,10 @@ def host_scan(label, argv, dst, dev, engine, stdin_path=None, walls=None):
     """One scan of the port with `engine` that must launch no kernel and
     leave the card's peak memory where a reset put it. Returns (size,
     sha256)."""
-    from stringsext_tpu_torch.ops import classify_cjk, swar
+    from stringsext_tpu_torch.ops import classify_cjk, device_events, swar
 
-    kernels = (swar.swar_counts, classify_cjk._orbit_mask_blocked)
+    kernels = (swar.swar_counts, classify_cjk._orbit_mask_blocked,
+               device_events._report_clamp)
     for fn in kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -2905,7 +3059,8 @@ def kernels_line():
             "plain_ms": r["plain_ms"][1],
             "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": None,  # no single PyTorch call computes it
+            # a PyTorch call that computes it, where one does
+            "library_ms": r.get("library_ms"),
         })
     return {"kernels": out}
 
@@ -2935,6 +3090,7 @@ def main() -> int:
         big, trio, other_sets = phase_kernel(dev)
         phase_orbit(dev, stateful)
         phase_feeds(dev, stateful, oracles)
+        phase_report_clamp(dev, big)
         pool.shutdown()
         done("phases 1-2")
         main_src, main_host = phase_main_path(dev, tmp)
@@ -2961,6 +3117,7 @@ def main() -> int:
         time_swar_counts(dev, big, trio, other_sets)
         time_lanes_kernels(dev, big)
         time_orbit(dev, stateful)
+        time_report_clamp(dev, big)
         done("kernel timings")
     finally:
         if pool is not None:  # waits for a running oracle when a phase failed

@@ -20,9 +20,16 @@ on the device and int64 on the host, so the feed has no 2 GiB limit (the
 reference compacts on the host there, :347-354; the arrays are the same).
 `compute_lanes` and so the event backend keep the four self-synchronising
 kinds, as the reference's (:108-127).
+
+The report clamp (the reference's `lax.cummax` and compare, :336-345)
+is `_report_clamp`: the hand kernel `csrc/report_clamp.cu` for a CUDA
+tensor, its plain version `_report_clamp_ref` (`torch.cummax`) for a CPU
+tensor, one path for every kind.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -353,6 +360,85 @@ def _halo_piece_lanes(data: np.ndarray, kind: str, encoding_name: str,
                             _lanes(b, kind, encoding_name, hi - lo)))
 
 
+_CLAMP_TILE = 4096  # positions a thread block of csrc/report_clamp.cu
+_CLAMP_ARGS = [
+    ctypes.c_void_p,  # start: bool[n]
+    ctypes.c_void_p,  # pending: bool[n]
+    ctypes.c_void_p,  # acc: bool[n]
+    ctypes.c_void_p,  # report_off: int32[n]
+    ctypes.c_void_p,  # length: int32[n]
+    ctypes.c_int64,  # n
+    ctypes.c_int64,  # lo
+    ctypes.c_void_p,  # scratch: int64[ceil(n / 4096) + 1]
+    ctypes.c_void_p,  # out: bool[n]
+    ctypes.c_void_p,  # last: int32[1]
+    ctypes.c_int,  # device index
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def _report_clamp_ref(start, pending, acc, report_off, length, lo: int):
+    """Plain torch version of `_report_clamp` (the running max by
+    `torch.cummax`), on any device: the CPU's feed, the card's
+    comparison."""
+    idx = torch.arange(acc.shape[0], dtype=torch.int32, device=acc.device)
+    rep = torch.where(start & ~pending, idx + report_off, -1)
+    rep_max = torch.clamp(torch.cummax(rep, dim=0).values, min=lo)
+    return acc & (rep_max == idx + length - 1), rep_max[-1]
+
+
+def _report_clamp(start, pending, acc, report_off, length, lo: int):
+    """The feed's report clamp over a piece of n positions: (feedable,
+    last). The effective report of position i is the running max M[i] of
+    `lo` and the event reports j + report_off[j] at j <= i (an event:
+    start and not pending), the emitter's clock; a char whose effective
+    report is past its own last byte is excluded, so feedable[i] =
+    acc[i] and M[i] == i + length[i] - 1 (bool[n]), and last = M[n - 1]
+    (an int32 0-d tensor), the max the next piece starts from. `start`,
+    `pending` and `acc` are 1-D bool, `report_off` and `length` 1-D
+    int32, all of length n on one device; -1 <= lo < 2**31. The kernel
+    `csrc/report_clamp.cu` for CUDA tensors (counted in
+    `_report_clamp.launches` and in the profiling counter
+    `feed.clamp.kernel`), `_report_clamp_ref` for CPU tensors."""
+    lanes = (start, pending, acc, report_off, length)
+    n = acc.shape[0] if acc.dim() == 1 else -1
+    for t, dtype in zip(lanes, (torch.bool,) * 3 + (torch.int32,) * 2):
+        if t.dim() != 1 or t.shape[0] != n or t.dtype != dtype:
+            raise ValueError("the report clamp takes 1-D lanes of one "
+                             "length: start, pending, acc bool, report_off, "
+                             "length int32")
+        if t.device != acc.device or not t.is_contiguous():
+            raise ValueError("the report clamp's lanes must be contiguous "
+                             "and on one device")
+    lo = int(lo)
+    if not 0 < n < 2 ** 31 or not -1 <= lo < 2 ** 31:
+        raise ValueError(f"report clamp: n {n} or lo {lo} out of range")
+    dev = acc.device
+    if dev.type == "cpu":
+        return _report_clamp_ref(start, pending, acc, report_off, length, lo)
+    if dev.type != "cuda":
+        raise ValueError(f"_report_clamp runs on cuda or cpu, not {dev}")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    last = torch.empty((), dtype=torch.int32, device=dev)
+    # the look-back's ticket and one status word a tile (zeroed by the
+    # launcher on the stream)
+    scratch = torch.empty(-(-n // _CLAMP_TILE) + 1, dtype=torch.int64,
+                          device=dev)
+    from .. import _build
+
+    stream = torch.cuda.current_stream(dev)
+    _build.launch("report_clamp_launch", _CLAMP_ARGS,
+                  *(t.data_ptr() for t in lanes), n, lo, scratch.data_ptr(),
+                  out.data_ptr(), last.data_ptr(), dev.index,
+                  stream.cuda_stream)
+    _report_clamp.launches += 1
+    profiling.count("feed.clamp.kernel")
+    return out, last
+
+
+_report_clamp.launches = 0
+
+
 def _piece_feed(lanes: classify.Lanes, base: int, carry: int, af_w, ubf_w,
                 with_extras: bool, multi=None, state_hot=None):
     """The feed of one piece whose first byte is stream byte `base`:
@@ -365,22 +451,16 @@ def _piece_feed(lanes: classify.Lanes, base: int, carry: int, af_w, ubf_w,
     them."""
     with profiling.scope("feed.lanes"):
         acc = accept_mask(lanes, af_w, ubf_w)
-        # Effective report = running max over event reports (the
-        # emitter's clock). A char whose effective report exceeds its own
-        # last byte is excluded. A carry from before the piece below -1
-        # changes nothing.
-        idx = torch.arange(acc.shape[0], dtype=torch.int32,
-                           device=acc.device)
-        evt = lanes.start & ~lanes.pending
-        rep = torch.where(evt, idx + lanes.report_off, -1)
-        rep_max = torch.clamp(torch.cummax(rep, dim=0).values,
-                              min=max(carry - base, -1))
-        feedable = acc & (rep_max == idx + lanes.length - 1)
+        # A carry from before the piece below -1 changes nothing.
+        feedable, last = _report_clamp(lanes.start, lanes.pending, acc,
+                                       lanes.report_off, lanes.length,
+                                       max(carry - base, -1))
+    profiling.count("feed.pieces")
     # From here the host waits on the card; the extras' masks are
     # launched between the two fetches.
     with profiling.scope("feed.fetch"):
         feed = _fetch(feedable, base, lanes.length, lanes.cp)
-        carry = base + int(rep_max[-1])
+        carry = base + int(last)
         profiling.count("card.syncs")
         if not with_extras:
             return feed, None, carry

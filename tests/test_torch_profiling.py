@@ -11,16 +11,19 @@ counters' expected values follow from the code:
   and waits once (`hot.cpu()`); each of the three missions' feed copies
   the piece, n bytes (its halo is clipped at both ends of the stream),
   and waits 8 times: `_fetch` of the feedable chars (`nonzero`, the
-  positions and two gathered lanes back), `int(rep_max[-1])`, `_fetch`
-  of the extras (`nonzero`, the positions, one lane). So `bytes.to_card`
-  is 4n and `card.syncs` 1 + 3 * 8 = 25, and every mission's hot map is
-  computed and replaced by its feed's ranges.
+  positions and two gathered lanes back), `int(last)` (the report
+  clamp's last max), `_fetch` of the extras (`nonzero`, the positions,
+  one lane). So `bytes.to_card` is 4n and `card.syncs` 1 + 3 * 8 = 25,
+  every mission's hot map is computed and replaced by its feed's ranges,
+  and `feed.pieces` is 3, one piece a mission, none clamped by the
+  card's kernel (`feed.clamp.kernel` absent) on the CPU.
 - streamed in c-byte chunks, over an image of zeros with strings of the
   three encodings inside every chunk: each mission's decoder consumes
   every chunk whole, so no bytes carry over and each chunk's feed
   starts at the chunk's first byte. Each chunk copies its bytes once a
   mission and waits 8 times a mission; no mission needs a hot map. So
-  `bytes.to_card` is 3 * the image's bytes and `card.syncs` 24 a chunk.
+  `bytes.to_card` is 3 * the image's bytes, `card.syncs` 24 a chunk and
+  `feed.pieces` 3 a chunk.
 """
 
 import json
@@ -151,7 +154,7 @@ def test_buffered_counters_follow_from_the_code(tables, tmp_path):
     _scan(path, tmp_path)
     assert dict(tables._counts) == {
         "bytes.scanned": n, "bytes.to_card": 4 * n, "card.syncs": 25,
-        "hotmap.missions": 3, "hotmap.replaced": 3}
+        "hotmap.missions": 3, "hotmap.replaced": 3, "feed.pieces": 3}
     assert "device.lanes_hotmap" not in tables._stats
 
 
@@ -166,7 +169,7 @@ def test_streamed_counters_follow_from_the_code(tables, tmp_path,
     chunks = 4
     assert dict(tables._counts) == {
         "bytes.scanned": len(data), "bytes.to_card": 3 * len(data),
-        "card.syncs": 24 * chunks}
+        "card.syncs": 24 * chunks, "feed.pieces": 3 * chunks}
     assert tables._stats["chunk.read_wait"][1] == chunks
     assert tables._stats["feed.ranges"][1] == 3 * chunks
 
