@@ -308,10 +308,16 @@ def _chain_piece_lanes(data: np.ndarray, kind: str, start: int, end: int,
     last piece; the orbit runs from the carried entry and stops at the
     owned end, and the next entry is where the chain steps past it. At
     the lanes' starts (all the feed reads) they equal `cjk_lanes` /
-    `iso2022_lanes` of the whole stream."""
-    from .classify_cjk import _orbit_mask, cjk_pre_lanes
+    `iso2022_lanes` of the whole stream.
+
+    Counted in `feed.chain.pieces`, and in `feed.chain.orbit_kernel`
+    where the orbit ran on the card's kernel; the host's waits on the card
+    (ISO-2022-JP's state transfer, the next entry) are traced under the
+    scope `feed.chain.wait`, inside the caller's `feed.chain`."""
+    from .classify_cjk import _orbit_mask, _orbit_mask_blocked, cjk_pre_lanes
     from .classify_iso2022 import iso_pre_lanes, iso_state_transfer
 
+    profiling.count("feed.chain.pieces")
     lo, hi = max(start - LEFT_CTX, 0), min(end + RIGHT_HALO, len(data))
     b = to_device(data[lo:hi], device)
     profiling.count("bytes.to_card", hi - lo)
@@ -320,24 +326,30 @@ def _chain_piece_lanes(data: np.ndarray, kind: str, start: int, end: int,
     multi = state_hot = None
     if kind == KIND_ISO_2022_JP:
         pre, step, hot = iso_pre_lanes(b, hi - lo, st.mode, st.flag, s0)
-        mode_t, flag_t = iso_state_transfer(b, hi - lo, s0, own_end).tolist()
+        transfer = iso_state_transfer(b, hi - lo, s0, own_end)
+        with profiling.scope("feed.chain.wait"):
+            mode_t, flag_t = transfer.tolist()
         profiling.count("card.syncs")
         st.mode = mode_t if mode_t >= 0 else st.mode
         st.flag = flag_t if flag_t >= 0 else st.flag
         state_hot = hot[keep]
     else:
         pre, step = cjk_pre_lanes(b, kind, hi - lo)
+    launches = _orbit_mask_blocked.launches
     orbit = _orbit_mask(step, own_end, s0 + st.entry_d)
+    if _orbit_mask_blocked.launches != launches:
+        profiling.count("feed.chain.orbit_kernel")
     if kind != KIND_ISO_2022_JP:
         # the multi-codepoint pairs are the valid events whose cp lane
         # is -1 (cjk_lanes' `multi & start`)
         multi = (pre.valid & (pre.cp < 0) & orbit)[keep]
     # the next entry: where the chain steps from its last owned position
-    last = int(torch.max(torch.where(
-        orbit, torch.arange(hi - lo, dtype=torch.int32, device=b.device),
-        -1)))
-    nxt = (last + max(int(step[last]), 1) if last >= 0
-           else s0 + st.entry_d)
+    last_t = torch.max(torch.where(
+        orbit, torch.arange(hi - lo, dtype=torch.int32, device=b.device), -1))
+    with profiling.scope("feed.chain.wait"):
+        last = int(last_t)
+        nxt = (last + max(int(step[last]), 1) if last >= 0
+               else s0 + st.entry_d)
     profiling.count("card.syncs", 2 if last >= 0 else 1)
     st.entry_d = nxt - own_end
     lanes = pre._replace(start=pre.start & orbit, valid=pre.valid & orbit,
@@ -517,8 +529,9 @@ def runtable_feed(data: np.ndarray, mission, device: torch.device,
                                           start, end, device)
                 multi = state_hot = None
             else:
-                lanes, multi, state_hot = _chain_piece_lanes(
-                    data, kind, start, end, device, chain)
+                with profiling.scope("feed.chain", end - start):
+                    lanes, multi, state_hot = _chain_piece_lanes(
+                        data, kind, start, end, device, chain)
         feed, extras, carry = _piece_feed(lanes, start, carry, af_w, ubf_w,
                                           with_extras, multi, state_hot)
         feed_parts.append(feed)

@@ -3,8 +3,10 @@ are also `torch.profiler` spans, counters, `enable()` after import, and
 tables that threads share.
 
 Scans run the trio (`-t x -e UTF-8 -e UTF-16LE -e UTF-16BE`) through
-`run.run(..., device="cpu")`, buffered and streamed, at small sizes. The
-counters' expected values follow from the code:
+`run.run(..., device="cpu")`, buffered and streamed, at small sizes, and
+two chain kinds (`-u Asian -e Shift_JIS -e ISO-2022-JP`) for the chain path's
+spans `feed.chain` and `feed.chain.wait`. The counters' expected values
+follow from the code:
 
 - buffered, n bytes (under the hot map's 32 MiB pass and the feed's
   64 MiB piece): the hot map copies the n bytes to the card in one pass
@@ -46,6 +48,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRIO = ["-t", "x", "-e", "UTF-8", "-e", "UTF-16LE", "-e", "UTF-16BE"]
+CHAIN = ["-t", "x", "-u", "Asian", "-e", "Shift_JIS", "-e", "ISO-2022-JP"]
 CHUNK = 64 * 1024
 NEW_SPANS = {"feed.lanes", "feed.fetch", "feed.join", "feed.ranges",
              "host.emit.0", "host.emit.1", "host.emit.2"}
@@ -87,10 +90,21 @@ def _small_chunks(monkeypatch):
     monkeypatch.setattr(run, "_run_streaming_stdin", chunked)
 
 
-def _scan(path, tmp_path, extra=()):
+def _chain_image() -> bytes:
+    """64 KiB of zeros holding Shift_JIS and ISO-2022-JP text."""
+    data = bytearray(64 * 1024)
+    for at, (codec, text) in zip((1024, 9000, 30001, 50002), [
+            ("shift_jis", "ファームウェアの更新"), ("iso2022_jp", "設定を保存 OK"),
+            ("shift_jis", "ディスクの整合性"), ("iso2022_jp", "カタカナ")]):
+        b = text.encode(codec)
+        data[at:at + len(b)] = b
+    return bytes(data)
+
+
+def _scan(path, tmp_path, extra=(), argv=TRIO):
     out = tmp_path / "out.txt"
     with open(out, "wb") as f:
-        assert run.run(cli.parse_args(TRIO + list(extra) + ["--", str(path)]),
+        assert run.run(cli.parse_args(argv + list(extra) + ["--", str(path)]),
                        out=f, device="cpu") == 0
     return out.read_bytes()
 
@@ -194,6 +208,42 @@ def test_off_records_nothing_and_opens_no_span(tables, tmp_path,
     assert not tables._stats and not tables._counts
     assert not {a[0] for a in _annotations(prof, tmp_path)} & (
         NEW_SPANS | {"device.feed", "host.assemble", "scan"})
+
+
+def test_chain_spans_nest_in_the_lanes_span(tables, tmp_path):
+    """Buffered, each chain mission feeds one piece: one `feed.chain` span
+    inside `feed.lanes`, holding one wait for the next entry and, for
+    ISO-2022-JP, one more for its state transfer."""
+    path = tmp_path / "in.bin"
+    path.write_bytes(_chain_image())
+    tables.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = _scan(path, tmp_path, argv=CHAIN)
+    assert got.count("ファームウェア".encode()) == 1
+    assert got.count("設定を保存".encode()) == 1
+    ann = _annotations(prof, tmp_path)
+    _inside(ann, "feed.chain", "feed.lanes")
+    _inside(ann, "feed.chain.wait", "feed.chain")
+    assert sum(a[0] == "feed.chain" for a in ann) == 2
+    assert sum(a[0] == "feed.chain.wait" for a in ann) == 3
+    assert tables._counts["feed.chain.pieces"] == 2
+    assert tables._counts["feed.chain.orbit_kernel"] == 0
+
+
+def test_off_opens_no_chain_span(tables, tmp_path, monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name, *a, **k):
+        opened.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    path = tmp_path / "in.bin"
+    path.write_bytes(_chain_image())
+    _scan(path, tmp_path, argv=CHAIN)
+    assert opened == []
+    assert not tables._stats and not tables._counts
 
 
 def test_enable_after_import_takes_effect(tables, capsys):

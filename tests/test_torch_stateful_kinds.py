@@ -10,6 +10,7 @@ bytes or integer arrays (tolerance 0)."""
 
 import io
 import os
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from stringsext_tpu_torch.engine import align
 from stringsext_tpu_torch.input import LoadedStream, slice_table
 from stringsext_tpu_torch.mission import Missions
 from stringsext_tpu_torch.ops import device_events, swar
+from stringsext_tpu_torch.utils import profiling
 
 # One thread for torch's CPU ops: the inputs are small, and the test run's
 # workers together already use every core.
@@ -188,22 +190,55 @@ def test_every_encoding_equals_the_reference(enc, mixed_file):
     assert _port_stream(argv, _mixed_corpus(), 65536) == want, enc
 
 
+def _fresh_tables(monkeypatch):
+    """Profiling on, with empty tables; restored afterwards."""
+    monkeypatch.setattr(profiling, "ENABLED", True)
+    monkeypatch.setattr(profiling, "_stats",
+                        defaultdict(lambda: [0.0, 0, 0]))
+    monkeypatch.setattr(profiling, "_counts", defaultdict(int))
+
+
 def test_all_41_encodings_in_one_scan(mixed_file, monkeypatch):
     """The whole sweep as one mission set: one `swar_counts` call serves
     every spec of a chunk (feed off); with the feed on, streamed, only
     the missions without a feed ask it (replacement, whose kind has none,
-    and ISO-2022-JP in a chunk entered out of its ground state)."""
+    and ISO-2022-JP in a chunk entered out of its ground state).
+
+    With the feed on, the chain kinds' counters and spans: each of the
+    seven chain missions (Big5, EUC-JP, EUC-KR, GBK, gb18030, Shift_JIS,
+    ISO-2022-JP) feeds one piece a scan buffered and one a chunk
+    streamed, but ISO-2022-JP skips the chunks it enters out of its
+    ground state; a piece waits once for its next entry and an
+    ISO-2022-JP piece once more for its state transfer; on the CPU no
+    orbit runs on the card's kernel."""
     argv = ["-t", "x", "-n", "6"] + [a for e in ALL_41 for a in ("-e", e)]
     want = _ref(argv + [mixed_file])
     assert want.count(b"\n") > 400
     real = swar.swar_counts
+    chain = 7
+
+    def chain_counts(pieces, iso_pieces):
+        assert profiling._counts["feed.chain.pieces"] == pieces
+        assert profiling._counts["feed.chain.orbit_kernel"] == 0
+        assert profiling._stats["feed.chain"][1] == pieces
+        assert profiling._stats["feed.chain.wait"][1] == pieces + iso_pieces
+        _fresh_tables(monkeypatch)
+
     for feed_env, nspecs in (("0", len(ALL_41)), ("1", None)):
         monkeypatch.setenv("STRINGSEXT_RUNTABLE_FEED", feed_env)
+        _fresh_tables(monkeypatch)
         calls = []
-        monkeypatch.setattr(swar, "swar_counts", lambda w, specs, **kw: (
-            calls.append(len(specs)), real(w, specs, **kw))[1])
+
+        def spy(w, specs, **kw):
+            calls.append(len(specs))
+            return real(w, specs, **kw)
+
+        spy.launches = 0  # read by the profile's report
+        monkeypatch.setattr(swar, "swar_counts", spy)
         assert _port(argv + [mixed_file]) == want
         assert calls == [len(ALL_41)]  # buffered: one chunk, every mission
+        chain_counts(chain if nspecs is None else 0,
+                     1 if nspecs is None else 0)
         calls.clear()
         assert _port_stream(argv, _mixed_corpus(), 65536) == want
         stateful = sum(encoding_kind(m.encoding_name) in STATEFUL_KINDS
@@ -218,6 +253,9 @@ def test_all_41_encodings_in_one_scan(mixed_file, monkeypatch):
         # feed ask the kernel
         assert len(calls) in (2, 3)
         assert set(calls) <= ({nspecs} if nspecs else {no_feed, no_feed + 1})
+        iso_fed = 0 if nspecs else calls.count(no_feed)
+        chain_counts(0 if nspecs else (chain - 1) * len(calls) + iso_fed,
+                     iso_fed)
         monkeypatch.setattr(swar, "swar_counts", real)
 
 
