@@ -38,6 +38,17 @@ printed:
    over 64 MiB of `corpus.stateful_corpus` must equal the numpy oracle
    `_feed_from_host_events` array by array, extras included, and on a
    4 MiB cut the port's CPU feed and the card's feed in 256 KiB pieces;
+   and ISO-2022-JP's last-set scan `_scan_last_sets` (CUDA,
+   `csrc/last_set_scan.cu`) must equal its plain version
+   `_scan_last_set_ref` (`torch.cummax`) bit for bit, lane by lane, on the
+   mode and flag transfer lanes of the feed's ISO-2022-JP pieces of that
+   corpus (its first 64 MiB, an 8 MiB piece from its middle with its
+   context) and of bytes with escape fragments planted densely (one a 40
+   bytes) and sparsely (one a MiB) at 8 MiB + 12 and 64 MiB, each with the
+   lanes swapped and sliced 4 bytes in; at n = 1, 2, 17, one below, at and
+   one above 1, 2, 3 and 40 tiles of 4096, and 8 MiB + 12, with nothing
+   set, everything set, values up to 2**31 - 1 and values only at the
+   tiles' edges; and on two launches back to back over different data;
    (2d) the feed's report clamp `_report_clamp` (CUDA,
    `csrc/report_clamp.cu`) must equal its plain version `_report_clamp_ref`
    (`torch.cummax`) bit for bit, the mask and the last running max, at
@@ -109,8 +120,9 @@ printed:
    gb18030, ISO-2022-JP, UTF-8 under `-u Asian`) over 64 MiB of a
    firmware-like corpus (`corpus.stateful_corpus`), streamed and
    buffered, feed on and feed off, in three turns with `run_host`: all
-   byte-identical to `run_host`, the orbit kernel launched by every scan
-   with the feed on, `swar_counts` by every scan with it off; and one
+   byte-identical to `run_host`, the orbit kernel, the report clamp and
+   the last-set scan launched by every scan with the feed on and none of
+   them with it off, `swar_counts` by every scan with it off; and one
    streamed scan of 256 MiB of that corpus from a pipe, feed on, whose
    peak device memory must not pass the 64 MiB streamed scan's by more
    than two chunks (16 MiB); (c)
@@ -131,8 +143,9 @@ printed:
    runs of any shard): the stitched tables must equal the single-device
    scan's runs, their hot ranges must make the emitter write `run_host`'s
    bytes, every stage-C probe set of the orbit kernel must equal
-   `_orbit_masks_block0`, and the orbit kernel must launch 5 times a chain
-   cell; a second run is timed with its peak device memory; (c) the
+   `_orbit_masks_block0`, the orbit kernel must launch 5 times a chain
+   cell and the last-set scan must launch; a second run is timed with its
+   peak device memory; (c) the
    `--mesh` CLI with `run.mesh_devices` answering 4 shards, feed off,
    buffered and streamed from a pipe, in three turns with the unsharded
    feed-off scans and `run_host`: all byte-identical, the sharded scans
@@ -238,7 +251,11 @@ piece of the streamed path. The report clamp's bound counts 12 bytes a
 position (three bool and two int32 lanes read, the mask written); it is
 timed on the UTF-8 lanes of an 8 MiB and a 64 MiB trio piece, beside its
 plain version and the library's `torch.cummax` + clamp + compare
-(`library_ms`, the yardstick the port no longer calls).
+(`library_ms`, the yardstick the port no longer calls). The last-set
+scan's bound counts 16 bytes a position (two int32 lanes read and
+written); it is timed on the ISO-2022-JP transfer lanes of phase 2c's 8
+MiB and 64 MiB stateful pieces, beside its plain version and the
+library's two `torch.cummax` (`library_ms`).
 
 The script imports torch, numpy and the port; it never imports jax or
 the JAX package and asserts so. Its last two lines are a JSON object
@@ -287,6 +304,9 @@ KERNELS = {
                       "classify_cjk.py::_orbit_mask_blocked"),
     "report_clamp": ("report_clamp.cu",
                      "device_events.py::runtable_feed:344 (lax.cummax)"),
+    "last_set_scan": ("last_set_scan.cu",
+                      "classify_iso2022.py::_scan_last_set:71 "
+                      "(lax.associative_scan)"),
 }
 # what each phase learns about a kernel: "err", "launches" {path: n},
 # "ms" (min, median, max), "single_ms", "plain_ms", "bytes", "library_ms"
@@ -713,6 +733,135 @@ def start_oracles(stateful):
                   for e in STATEFUL_FEEDS}
 
 
+ISO_FRAGS = [b"\x1b", b"\x1b(", b"\x1b(B", b"\x1b(I", b"\x1b(J", b"\x1b$B",
+             b"\x1b$@", b"\x1b$X", b"\x1b$B\x30\x6c", b"\x0e\x0f"]
+
+
+def iso_fuzz(n, every, seed):
+    """Printable bytes with an ISO-2022-JP escape fragment (valid,
+    invalid, truncated, a LEAD pair) planted about every `every` bytes,
+    from a seed."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    d = r.integers(0x20, 0x7F, n, np.uint8)
+    for f in ISO_FRAGS:
+        at = r.integers(0, max(n - len(f), 1),
+                        max(n // every // len(ISO_FRAGS), 1))
+        for j, byte in enumerate(f):
+            d[np.minimum(at + j, n - 1)] = byte
+    return d
+
+
+def iso_transfers(raw, dev, effect_lo):
+    """The (mode, flag) transfer lanes `iso_pre_lanes` hands the last-set
+    scan over the bytes `raw`, with the effects before `effect_lo` cut as
+    the feed's pieces cut them."""
+    from stringsext_tpu_torch.ops.classify_iso2022 import (
+        _flag_transfers,
+        _iso_escapes,
+        _mode_transfers,
+    )
+
+    b = torch.from_numpy(raw).to(dev).to(torch.int32)
+    E = _iso_escapes(b, b.numel())
+    keep = E["idx"] >= effect_lo
+    return (torch.where(keep, _mode_transfers(E), -1).to(torch.int32),
+            torch.where(keep, _flag_transfers(E), -1).to(torch.int32))
+
+
+def last_set_edge(n, case, seed, dev):
+    """An int32 lane of n positions on `dev`: "unset" (all -1), "all"
+    (every position set), "big" (a hundredth set, values up to 2**31 - 1)
+    or "tiles" (set only at the last and first position of every tile of
+    4096)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    if case == "unset":
+        t = np.full(n, -1)
+    elif case == "all":
+        t = r.integers(0, 4, n)
+    elif case == "big":
+        t = np.where(r.random(n) < 0.01,
+                     r.integers(0, 2 ** 31 - 1, n, endpoint=True), -1)
+        t[r.integers(0, n)] = 2 ** 31 - 1
+    else:
+        t = np.full(n, -1)
+        ends = np.arange(4095, n, 4096)
+        t[ends] = ends // 4096 % 4
+        t[np.minimum(ends + 1, n - 1)] = 7
+    return torch.from_numpy(t.astype(np.int32)).to(dev)
+
+
+def stateful_iso_lanes(dev, stateful):
+    """The transfer lanes of the feed's ISO-2022-JP pieces over the
+    stateful corpus: {label: (t0, t1)} for its first 64 MiB piece (the
+    buffered path's, effects from 0) and an 8 MiB piece from its middle
+    with LEFT_CTX bytes before it and RIGHT_HALO after (the streamed
+    path's chunk, effects from LEFT_CTX)."""
+    from stringsext_tpu_torch.ops import device_events as de
+
+    lo = 8 * MIB - de.LEFT_CTX
+    pieces = ((stateful[:64 * MIB + de.RIGHT_HALO], 0),
+              (stateful[lo:16 * MIB + de.RIGHT_HALO], de.LEFT_CTX))
+    return {f"{len(raw)} bytes": iso_transfers(raw, dev, effect_lo)
+            for raw, effect_lo in pieces}
+
+
+def check_last_sets(dev, stateful):
+    """Phase 2c's last-set scan: `_scan_last_sets` (CUDA,
+    `csrc/last_set_scan.cu`) against `_scan_last_set_ref` lane by lane.
+    Returns the number of lanes compared."""
+    from stringsext_tpu_torch.ops import device_events as de
+    from stringsext_tpu_torch.ops.classify_iso2022 import (
+        _scan_last_set_ref,
+        _scan_last_sets,
+    )
+
+    ncmp = 0
+
+    def check(what, lanes, got=None):
+        nonlocal ncmp
+        got = got or _scan_last_sets(*lanes)
+        for k, (t, g) in enumerate(zip(lanes, got)):
+            want = _scan_last_set_ref(t)
+            if g.dtype != want.dtype:
+                raise AssertionError(f"last_set_scan on {what}: {g.dtype}")
+            check_equal("last_set_scan", f"{what}, lane {k}", g, want)
+            ncmp += 1
+
+    pieces = {f"stateful corpus piece of {k}": v
+              for k, v in stateful_iso_lanes(dev, stateful).items()}
+    piece8 = 8 * MIB + de.LEFT_CTX + de.RIGHT_HALO
+    for size in (piece8, 64 * MIB):
+        for every, density in ((40, "dense"), (MIB, "sparse")):
+            pieces[f"{size} fuzzed bytes, {density} escapes"] = iso_transfers(
+                iso_fuzz(size, every, seed=size + every), dev, de.LEFT_CTX)
+    for what, lanes in pieces.items():
+        check(what, lanes)
+        check(f"{what}, lanes swapped", lanes[::-1])
+        check(f"{what}, sliced 4 bytes in", tuple(t[1:] for t in lanes))
+    sizes = [1, 2, 17, piece8]
+    for tiles in (1, 2, 3, 40):
+        sizes += [tiles * 4096 - 1, tiles * 4096, tiles * 4096 + 1]
+    for n in sizes:
+        b = last_set_edge(n, "big", n + 1, dev)
+        for case in ("unset", "all", "big", "tiles"):
+            a = last_set_edge(n, case, n, dev)
+            check(f"n {n} {case}", (a, b))
+            check(f"n {n} {case}, lanes swapped", (b, a))
+    # two launches back to back on different data, each held to its plain
+    # version after both ran: a status word of the first left in the
+    # second's look-back would show
+    pair = [pieces[f"{piece8} fuzzed bytes, {d} escapes"]
+            for d in ("dense", "sparse")]
+    got = [_scan_last_sets(*lanes) for lanes in pair]
+    for k, lanes in enumerate(pair):
+        check(f"back-to-back launch {k}", lanes, got[k])
+    return ncmp
+
+
 def phase_feeds(dev, stateful, oracles):
     """Phase 2c: the card's feeds of the stateful kinds against the numpy
     oracles that `start_oracles` runs in worker processes."""
@@ -738,9 +887,12 @@ def phase_feeds(dev, stateful, oracles):
         say(f"  {enc}: {len(got[0][0])} runs, {len(got[1][0])} extras; "
             f"card feed {t_card:.3f} s, numpy oracle {t_host:.3f} s (a "
             f"process of its own)")
+    ncmp = check_last_sets(dev, stateful)
     say(f"phase 2c: the card's feeds of {', '.join(STATEFUL_FEEDS)} equal the "
         f"numpy oracle at {len(stateful) // MIB} MiB, the CPU feed and the "
-        f"256 KiB pieces ({time.perf_counter() - t0:.1f} s)")
+        f"256 KiB pieces; {ncmp} last-set scan lanes, max abs difference "
+        f"{RESULTS['last_set_scan']['err']} (tolerance 0) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def random_clamp_lanes(dev, n, case, seed):
@@ -869,6 +1021,42 @@ def time_report_clamp(dev, big):
                 f"median {single:.4f}); bound {bound:.4f} ms "
                 f"({100 * bound / t[1]:.0f}% reached)")
         say(f"{label}: library torch.cummax + clamp + compare min/median/max "
+            f"{lib[0]:.4f} / {lib[1]:.4f} / {lib[2]:.4f} ms")
+
+
+def time_last_set_scan(dev, stateful):
+    """The last-set scan on the transfer lanes of the stateful corpus's
+    ISO-2022-JP pieces of 8 MiB (the streamed chunk) and of 64 MiB (the
+    buffered piece): the kernel, its plain version, and the library's two
+    `torch.cummax` (one a lane, over the positions that hold a value)."""
+    from stringsext_tpu_torch.ops.classify_iso2022 import (
+        _scan_last_set_ref,
+        _scan_last_sets,
+    )
+
+    for label, (t0, t1) in sorted(stateful_iso_lanes(dev, stateful).items(),
+                                  key=lambda kv: kv[1][0].numel()):
+        n = t0.numel()
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        w0, w1 = (torch.where(t >= 0, idx, -1) for t in (t0, t1))
+        lib = cuda_ms(lambda: (torch.cummax(w0, dim=0),
+                               torch.cummax(w1, dim=0)), reps=10, inner=1)
+        label = f"last_set_scan, ISO-2022-JP lanes of a piece of {label}"
+        kern = functools.partial(_scan_last_sets, t0, t1)
+        if n > 32 * MIB:
+            time_kernel("last_set_scan", label, kern,
+                        lambda: (_scan_last_set_ref(t0),
+                                 _scan_last_set_ref(t1)), 16 * n)
+            RESULTS["last_set_scan"]["library_ms"] = lib[1]
+        else:
+            t = cuda_ms(kern)
+            single = cuda_ms(kern, inner=1)[1]
+            bound = 16 * n / HBM_BYTES_PER_S * 1e3
+            say(f"{label}: kernel min/median/max {t[0]:.4f} / {t[1]:.4f} / "
+                f"{t[2]:.4f} ms a launch in runs of 10 (single launches: "
+                f"median {single:.4f}); bound {bound:.4f} ms "
+                f"({100 * bound / t[1]:.0f}% reached)")
+        say(f"{label}: library torch.cummax of both lanes min/median/max "
             f"{lib[0]:.4f} / {lib[1]:.4f} / {lib[2]:.4f} ms")
 
 
@@ -1235,7 +1423,12 @@ def stateful_scans(dev, tmp, dst):
     buffered, feed on and off, in three turns with `run_host`; then the
     256 MiB streamed scan, feed on."""
     from stringsext_tpu_torch.corpus import STATEFUL_ENCODINGS, stateful_corpus
-    from stringsext_tpu_torch.ops import classify_cjk, device_events, swar
+    from stringsext_tpu_torch.ops import (
+        classify_cjk,
+        classify_iso2022,
+        device_events,
+        swar,
+    )
     from stringsext_tpu_torch.run import STREAM_CHUNK
 
     ssrc = os.path.join(tmp, "stateful.bin")
@@ -1245,7 +1438,8 @@ def stateful_scans(dev, tmp, dst):
     swhat = f"{STATEFUL_SIZE // MIB} MiB {'+'.join(STATEFUL_ENCODINGS)}"
     kernels = {"swar_counts": swar.swar_counts,
                "orbit_resolve": classify_cjk._orbit_mask_blocked,
-               "report_clamp": device_events._report_clamp}
+               "report_clamp": device_events._report_clamp,
+               "last_set_scan": classify_iso2022._scan_last_sets}
     routes = ("run_host", "streamed, feed on", "buffered, feed on",
               "streamed, feed off", "buffered, feed off")
     outs, walls, peaks, seen = set(), {}, {}, {}
@@ -1267,12 +1461,11 @@ def stateful_scans(dev, tmp, dst):
                 continue
             n = {k: fn.launches for k, fn in kernels.items()}
             seen[route] = n
-            need = (("orbit_resolve", "report_clamp") if route.endswith("on")
-                    else ("swar_counts",))
+            feed = ("orbit_resolve", "report_clamp", "last_set_scan")
+            need = feed if route.endswith("on") else ("swar_counts",)
             if not all(n[k] for k in need):
                 raise AssertionError(f"7b {route}: {need} never ran ({n})")
-            if route.endswith("off") and (n["orbit_resolve"]
-                                          or n["report_clamp"]):
+            if route.endswith("off") and any(n[k] for k in feed):
                 raise AssertionError(f"7b {route}: the feed's kernels ran "
                                      f"without the feed ({n})")
             if turn == 0:
@@ -1476,7 +1669,7 @@ def mesh_scan(dev, tmp, stateful, cards=None):
     )
     from stringsext_tpu_torch.input import load_stream, slice_table
     from stringsext_tpu_torch.mission import Missions
-    from stringsext_tpu_torch.ops import classify_cjk
+    from stringsext_tpu_torch.ops import classify_cjk, classify_iso2022
     from stringsext_tpu_torch.parallel import mesh
     from stringsext_tpu_torch.run import _merge_ranges, run_host, write_output
 
@@ -1534,6 +1727,7 @@ def mesh_scan(dev, tmp, stateful, cards=None):
 
     traffic = []
     classify_cjk._orbit_mask_blocked.launches = 0
+    classify_iso2022._scan_last_sets.launches = 0
     mesh._entry_probes = checked
     try:
         rt = scan(data, traffic=traffic)
@@ -1543,9 +1737,13 @@ def mesh_scan(dev, tmp, stateful, cards=None):
     if torch.cuda.current_device() != dev.index:
         raise AssertionError(f"9b: the scan left the current device at "
                              f"{torch.cuda.current_device()}")
+    if not classify_iso2022._scan_last_sets.launches:
+        raise AssertionError("9b: the ISO-2022-JP column never launched the "
+                             "last-set scan")
     count_launches(f"mesh scan {n_data} x {n_mission} on {where}, "
                    f"stateful {len(stateful) // MIB} MiB",
-                   {"orbit_resolve": classify_cjk._orbit_mask_blocked})
+                   {"orbit_resolve": classify_cjk._orbit_mask_blocked,
+                    "last_set_scan": classify_iso2022._scan_last_sets})
     chains = 3 * n_data  # Shift_JIS, gb18030 and ISO-2022-JP columns
     if len(probes) != chains or launches != 5 * chains:
         raise AssertionError(f"9b: {len(probes)} probe sets checked, "
@@ -2037,10 +2235,15 @@ def host_scan(label, argv, dst, dev, engine, stdin_path=None, walls=None):
     """One scan of the port with `engine` that must launch no kernel and
     leave the card's peak memory where a reset put it. Returns (size,
     sha256)."""
-    from stringsext_tpu_torch.ops import classify_cjk, device_events, swar
+    from stringsext_tpu_torch.ops import (
+        classify_cjk,
+        classify_iso2022,
+        device_events,
+        swar,
+    )
 
     kernels = (swar.swar_counts, classify_cjk._orbit_mask_blocked,
-               device_events._report_clamp)
+               device_events._report_clamp, classify_iso2022._scan_last_sets)
     for fn in kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -3118,6 +3321,7 @@ def main() -> int:
         time_lanes_kernels(dev, big)
         time_orbit(dev, stateful)
         time_report_clamp(dev, big)
+        time_last_set_scan(dev, stateful)
         done("kernel timings")
     finally:
         if pool is not None:  # waits for a running oracle when a phase failed

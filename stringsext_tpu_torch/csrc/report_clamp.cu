@@ -29,18 +29,9 @@
 //   3. Inside the tile: an inclusive max scan of the threads' maxima by
 //      shuffles, then warp 0 scans the 8 warp maxima: the tile's aggregate
 //      and each warp's exclusive prefix.
-//   4. Across tiles: a decoupled look-back (Merrill and Garland,
-//      "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA,
-//      2016). Tiles are numbered in the order thread blocks start (an atomic
-//      ticket), so a tile waits only on tiles whose blocks already run. Each
-//      tile publishes one 64-bit status word, a flag in the high half and a
-//      max in the low: AGG with its aggregate at once, INCL with the max
-//      through it once its prefix is known. Tile 0's prefix is lo. Warp 0
-//      reads 32 predecessors at a time, waits until those up to the nearest
-//      INCL are published, and takes their max. Flag and value share one
-//      aligned word that carries nothing else, so the words are read and
-//      written relaxed at device scope. The launcher zeroes ticket and words
-//      on the stream before each launch.
+//   4. Across tiles: the decoupled look-back of lookback.cuh under max,
+//      one 64-bit status word a tile (a flag in the high half, a max in
+//      the low). Tile 0's prefix is lo.
 //   5. Each thread takes M = max(prefix, its running max) at each position,
 //      compares, and stores its 16 mask bytes in one 16-byte store; the
 //      thread that holds position n - 1 writes `last`.
@@ -48,35 +39,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
-constexpr int kItems = 16;                 // positions a thread
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = kThreads * kItems;   // 4096 positions a thread block
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kNone = INT32_MIN;       // the identity of max
-constexpr uint32_t kFlagAgg = 1, kFlagIncl = 2;
+
+struct Max {
+  __device__ int32_t operator()(int32_t a, int32_t b) const { return max(a, b); }
+};
 
 // Alignment of the launch's arrays, two bits each: 2 for 16 bytes, 1 for
 // 4 bytes, 0 for 1 byte.
 enum { kStart, kPending, kAcc, kReport, kLength, kOut };
 __device__ __forceinline__ int align_of(int aligned, int array) {
   return (aligned >> (2 * array)) & 3;
-}
-
-__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ uint64_t status_word(uint32_t flag, int32_t value) {
-  return ((uint64_t)flag << 32) | (uint32_t)value;
 }
 
 // The 16 bytes at p (16 positions of a bool lane) as four words, by the
@@ -97,23 +74,6 @@ __device__ __forceinline__ uint4 load_bools(const uint8_t* __restrict__ p, int a
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// The 16 int32 at p, in four 16-byte loads where p allows them.
-__device__ __forceinline__ void load_ints(const int32_t* __restrict__ p, int align, int32_t* v) {
-  if (align == 2) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int4 q = __ldg(reinterpret_cast<const int4*>(p) + k);
-      v[4 * k] = q.x;
-      v[4 * k + 1] = q.y;
-      v[4 * k + 2] = q.z;
-      v[4 * k + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) v[k] = __ldg(p + k);
-  }
-}
-
 __device__ __forceinline__ bool byte_of(const uint4& w, int k) {
   const uint32_t word = k < 4 ? w.x : k < 8 ? w.y : k < 12 ? w.z : w.w;
   return ((word >> (8 * (k & 3))) & 0xFF) != 0;
@@ -121,43 +81,6 @@ __device__ __forceinline__ bool byte_of(const uint4& w, int k) {
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-
-__device__ __forceinline__ int32_t warp_max(int32_t v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(kFull, v, d));
-  return v;
-}
-
-// Warp 0 of tile `tile`: publish the aggregate, find the max of every
-// report before the tile (lo included), publish the max through it.
-// Returns the tile's exclusive prefix.
-__device__ int32_t look_back(uint64_t* status, int64_t tile, int32_t agg, int32_t lo, int lane) {
-  if (tile == 0) {
-    if (lane == 0) st_relaxed(status, status_word(kFlagIncl, max(lo, agg)));
-    return lo;
-  }
-  if (lane == 0) st_relaxed(status + tile, status_word(kFlagAgg, agg));
-  int32_t prefix = kNone;
-  for (int64_t pred = tile - 1;;) {
-    const int64_t idx = pred - lane;  // lane 0 is the nearest predecessor
-    // before tile 0, which is INCL once published: lo, never reached
-    const uint64_t word = idx >= 0 ? ld_relaxed(status + idx) : status_word(kFlagIncl, lo);
-    const uint32_t flag = (uint32_t)(word >> 32);
-    const uint32_t ready = __ballot_sync(kFull, flag != 0);
-    const uint32_t stops = __ballot_sync(kFull, flag == kFlagIncl);
-    const int first = stops ? __ffs(stops) - 1 : 31;
-    const uint32_t need = first == 31 ? kFull : (2u << first) - 1;
-    if ((ready & need) != need) {
-      __nanosleep(32);
-      continue;
-    }
-    prefix = max(prefix, warp_max(lane <= first ? (int32_t)(uint32_t)word : kNone));
-    if (stops) break;
-    pred -= 32;
-  }
-  if (lane == 0) st_relaxed(status + tile, status_word(kFlagIncl, max(prefix, agg)));
-  return prefix;
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
@@ -168,10 +91,7 @@ report_clamp_kernel(const uint8_t* __restrict__ start, const uint8_t* __restrict
                     uint8_t* __restrict__ out, int32_t* __restrict__ last, int aligned) {
   __shared__ int32_t warp_total[kWarps];
   __shared__ int32_t warp_prefix[kWarps];
-  __shared__ uint32_t tile_s;
-  if (threadIdx.x == 0) tile_s = atomicAdd(ticket, 1u);
-  __syncthreads();
-  const int64_t tile = tile_s;
+  const int64_t tile = take_ticket(ticket);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t base64 = tile * kTile + (int64_t)threadIdx.x * kItems;
   const int32_t base = (int32_t)min(base64, (int64_t)n);  // past n: no position
@@ -185,8 +105,8 @@ report_clamp_kernel(const uint8_t* __restrict__ start, const uint8_t* __restrict
     const uint4 p = load_bools(pending + base, align_of(aligned, kPending));
     const uint4 a = load_bools(acc + base, align_of(aligned, kAcc));
     int32_t ro[kItems], len[kItems];
-    load_ints(report_off + base, align_of(aligned, kReport), ro);
-    load_ints(length + base, align_of(aligned, kLength), len);
+    load_ints(report_off + base, align_of(aligned, kReport) == 2, ro);
+    load_ints(length + base, align_of(aligned, kLength) == 2, len);
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int32_t i = base + k;
@@ -208,12 +128,7 @@ report_clamp_kernel(const uint8_t* __restrict__ start, const uint8_t* __restrict
   }
 
   // 3. the threads' exclusive prefixes in the warp, the warps' in the tile
-  int32_t incl = m;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t o = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl = max(incl, o);
-  }
+  const int32_t incl = warp_scan<32>(m, lane, Max());
   int32_t excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = kNone;
   if (lane == 31) warp_total[warp] = incl;
@@ -221,16 +136,12 @@ report_clamp_kernel(const uint8_t* __restrict__ start, const uint8_t* __restrict
 
   // 4. across tiles
   if (warp == 0) {
-    int32_t w = lane < kWarps ? warp_total[lane] : kNone;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const int32_t o = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w = max(w, o);
-    }
+    const int32_t w =
+        warp_scan<kWarps>(lane < kWarps ? warp_total[lane] : kNone, lane, Max());
     const int32_t agg = __shfl_sync(kFull, w, kWarps - 1);
     int32_t wex = __shfl_up_sync(kFull, w, 1);
     if (lane == 0) wex = kNone;
-    const int32_t prefix = look_back(status, tile, agg, lo, lane);
+    const int32_t prefix = look_back(status, tile, agg, lo, kNone, false, lane, Max());
     if (lane < kWarps) warp_prefix[lane] = max(prefix, wex);
   }
   __syncthreads();

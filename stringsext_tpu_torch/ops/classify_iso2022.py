@@ -1,7 +1,8 @@
 """Classification lanes for modal ISO-2022-JP (WHATWG 12.2) as torch ops.
 
 Counterpart: stringsext_tpu/ops/classify_iso2022.py - `_scan_last_set`
-:71 (`_shift_right` :65 is `classify._shift_right`), `_iso_escapes` :79, `iso_state_transfer` :112,
+:71 (`_scan_last_sets` scans two lanes as it scans one; `_shift_right`
+:65 is `classify._shift_right`), `_iso_escapes` :79, `iso_state_transfer` :112,
 `iso_pre_lanes` :141, `iso2022_lanes` :246 and the numpy
 `iso2022_state_hot_np` :274 (copied verbatim; a test pins it). Each
 equals its counterpart element for element, int32 lanes included.
@@ -9,11 +10,13 @@ equals its counterpart element for element, int32 lanes included.
 Escape recognition is local (every 0x1B starts an escape attempt); the
 mode at every byte and the redundant-escape flag are prefix compositions
 of {identity, set} transfers. The reference composes them with
-`jax.lax.associative_scan`; torch has none, and "the last non-negative
-value at or before i" is a `torch.cummax` over the positions that hold
-one, followed by a gather. The true event chain (pair parity in LEAD
-mode does not resynchronise) is the orbit of the start under
-i -> i + step[i], as for the CJK kinds (`classify_cjk._orbit_mask`).
+`jax.lax.associative_scan`; here "the last non-negative value at or
+before i" is `_scan_last_sets`, which scans both lanes in one launch of
+the hand kernel `csrc/last_set_scan.cu` for a CUDA tensor, and takes its
+plain twin `_scan_last_set_ref` (a `torch.cummax` over the positions that
+hold a value, then a gather) for a CPU tensor. The true event chain (pair
+parity in LEAD mode does not resynchronise) is the orbit of the start
+under i -> i + step[i], as for the CJK kinds (`classify_cjk._orbit_mask`).
 
 `state_hot` marks every byte whose class depends on the mode or the pair
 phase (escape spans and all LEAD-mode data): a hot map built from the
@@ -23,23 +26,85 @@ skipped bytes to be mode- and phase-neutral 1-byte events, stays sound.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..encodings import KIND_EUC_JP
+from ..utils import profiling
 from .classify import Lanes, _shift_left, _shift_right
 from .classify_cjk import _orbit_mask, _pair_cp_np, _table
 
 
-def _scan_last_set(tval: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix composition of {identity=-1, const=v>=0}:
-    out[i] = last non-negative tval[j] with j <= i, else -1."""
+_SCAN_TILE = 4096  # positions a thread block of csrc/last_set_scan.cu
+_SCAN_ARGS = [
+    ctypes.c_void_p,  # t0: int32[n]
+    ctypes.c_void_p,  # t1: int32[n]
+    ctypes.c_int64,  # n
+    ctypes.c_void_p,  # scratch: int64[1 + 2 * ceil(n / 4096)]
+    ctypes.c_void_p,  # o0: int32[n]
+    ctypes.c_void_p,  # o1: int32[n]
+    ctypes.c_int,  # device index
+    ctypes.c_void_p,  # cudaStream_t
+]
+
+
+def _scan_last_set_ref(tval: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of one lane of `_scan_last_sets` (a
+    `torch.cummax` over the positions that hold a value, then a gather),
+    on any device: the CPU's lanes, the card's comparison."""
     if tval.numel() == 0:
         return tval
     idx = torch.arange(tval.shape[0], dtype=torch.int64, device=tval.device)
     last = torch.cummax(torch.where(tval >= 0, idx, -1), dim=0).values
     return torch.where(last >= 0, tval[torch.clamp(last, min=0)], -1).to(
         tval.dtype)
+
+
+def _scan_last_sets(t0: torch.Tensor, t1: torch.Tensor) -> tuple:
+    """Inclusive prefix composition of {identity=-1, const=v>=0} of each
+    of two lanes: out[i] = last non-negative t[j] with j <= i, else -1.
+    The lanes are 1-D contiguous int32 of one length on one device; empty
+    lanes come back as they are. The kernel `csrc/last_set_scan.cu` scans
+    both in one launch for CUDA tensors (counted in
+    `_scan_last_sets.launches` and in the profiling counter
+    `iso.scan.kernel`), `_scan_last_set_ref` each for CPU tensors."""
+    n = t0.shape[0] if t0.dim() == 1 else -1
+    for x in (t0, t1):
+        if x.dim() != 1 or x.shape[0] != n or x.dtype != torch.int32:
+            raise ValueError("the last-set scan takes two 1-D int32 lanes "
+                             "of one length")
+        if x.device != t0.device or not x.is_contiguous():
+            raise ValueError("the last-set scan's lanes must be contiguous "
+                             "and on one device")
+    if n == 0:
+        return t0, t1
+    if n >= 2 ** 31:
+        raise ValueError(f"last-set scan: n {n} out of range")
+    dev = t0.device
+    if dev.type == "cpu":
+        return _scan_last_set_ref(t0), _scan_last_set_ref(t1)
+    if dev.type != "cuda":
+        raise ValueError(f"_scan_last_sets runs on cuda or cpu, not {dev}")
+    o0 = torch.empty(n, dtype=torch.int32, device=dev)
+    o1 = torch.empty(n, dtype=torch.int32, device=dev)
+    # the look-back's ticket and one status word a tile a lane (zeroed by
+    # the launcher on the stream)
+    scratch = torch.empty(1 + 2 * -(-n // _SCAN_TILE), dtype=torch.int64,
+                          device=dev)
+    from .. import _build
+
+    stream = torch.cuda.current_stream(dev)
+    _build.launch("last_set_scan_launch", _SCAN_ARGS, t0.data_ptr(),
+                  t1.data_ptr(), n, scratch.data_ptr(), o0.data_ptr(),
+                  o1.data_ptr(), dev.index, stream.cuda_stream)
+    _scan_last_sets.launches += 1
+    profiling.count("iso.scan.kernel")
+    return o0, o1
+
+
+_scan_last_sets.launches = 0
 
 
 def _iso_escapes(b, n):
@@ -141,11 +206,16 @@ def iso_pre_lanes(b: torch.Tensor, n, entry_mode=0, entry_flag=-1,
     inv_far = invalid_esc & (E["e1_28"] | E["e1_24"])  # bad e2: pushback 2
     inv_near = invalid_esc & ~(E["e1_28"] | E["e1_24"])  # bad e1: pushback 1
 
-    # --- mode prefix composition -------------------------------------
-    # A valid escape at i sets the mode from position i+3 on. Effects
-    # before effect_lo are already folded into entry_mode.
+    # --- mode and flag prefix compositions, in one scan --------------
+    # A valid escape at i sets the mode from position i+3 on. The flag's
+    # transfers are {identity=-1, clear=0, set=1}: any consumed data byte
+    # clears; a valid escape sets at its END (i+2), so escapes strictly
+    # after it see the flag. Escape-error bytes are identity (host
+    # parity). Effects before effect_lo are already folded into
+    # entry_mode and entry_flag.
     tval = torch.where(idx >= effect_lo, _mode_transfers(E), -1)
-    mpfx = _scan_last_set(_int32(tval))
+    fv = torch.where(idx >= effect_lo, _flag_transfers(E), -1)
+    mpfx, fpfx = _scan_last_sets(_int32(tval), _int32(fv))
     mode = torch.where(mpfx >= 0, mpfx, int(entry_mode))
 
     # --- LEAD (jis0208 two-byte) segments ----------------------------
@@ -167,13 +237,7 @@ def iso_pre_lanes(b: torch.Tensor, n, entry_mode=0, entry_flag=-1,
     claim_rest = trunc_esc | pend_lead
     step = _int32(torch.where(claim_rest, torch.clamp(n - idx, min=1), step))
 
-    # --- redundant-escape flag (output flag) scan --------------------
-    # {identity=-1, clear=0, set=1}: any consumed data byte clears; a
-    # valid escape sets at its END (i+2), so escapes strictly after it
-    # see the flag. Escape-error bytes are identity (host parity).
-    # Effects before effect_lo are folded into entry_flag.
-    fv = torch.where(idx >= effect_lo, _flag_transfers(E), -1)
-    fpfx = _scan_last_set(_int32(fv))
+    # --- redundant-escape flag (output flag) ------------------------
     fp = _shift_right(fpfx, 1, -1)
     flag_before = torch.where(fp >= 0, fp, int(entry_flag)) == 1
     redundant = valid_esc & flag_before

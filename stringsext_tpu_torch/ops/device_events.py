@@ -310,8 +310,10 @@ def _chain_piece_lanes(data: np.ndarray, kind: str, start: int, end: int,
     the lanes' starts (all the feed reads) they equal `cjk_lanes` /
     `iso2022_lanes` of the whole stream.
 
-    Counted in `feed.chain.pieces`, and in `feed.chain.orbit_kernel`
-    where the orbit ran on the card's kernel; the host's waits on the card
+    Counted in `feed.chain.pieces`, in `feed.chain.iso_pieces` for an
+    ISO-2022-JP piece (whose last-set scan `iso.scan.kernel` counts where
+    it ran on the card's kernel), and in `feed.chain.orbit_kernel` where
+    the orbit ran on the card's kernel; the host's waits on the card
     (ISO-2022-JP's state transfer, the next entry) are traced under the
     scope `feed.chain.wait`, inside the caller's `feed.chain`."""
     from .classify_cjk import _orbit_mask, _orbit_mask_blocked, cjk_pre_lanes
@@ -325,6 +327,7 @@ def _chain_piece_lanes(data: np.ndarray, kind: str, start: int, end: int,
     keep = slice(s0, own_end)
     multi = state_hot = None
     if kind == KIND_ISO_2022_JP:
+        profiling.count("feed.chain.iso_pieces")
         pre, step, hot = iso_pre_lanes(b, hi - lo, st.mode, st.flag, s0)
         transfer = iso_state_transfer(b, hi - lo, s0, own_end)
         with profiling.scope("feed.chain.wait"):

@@ -101,7 +101,7 @@ _jax_transfer = jax.jit(JI.iso_state_transfer)
 def test_scan_last_set_is_the_reference():
     v = np.random.default_rng(5).integers(-3, 4, 1000).astype(np.int32)
     v[:7] = -1
-    _eq(TI._scan_last_set(torch.from_numpy(v)),
+    _eq(TI._scan_last_sets(torch.from_numpy(v), torch.from_numpy(v))[0],
         JI._scan_last_set(jnp.asarray(v)), "scan")
 
 
