@@ -1,11 +1,13 @@
 """The cell `allenc.sweep128_stream` and the readers of the chain kinds'
 spans and counters. The readers (`feed.chain` and `feed.chain.wait` in
 ms a GB, the share of chain pieces whose orbit ran on the card's kernel,
-and the orbit kernel's roofline over the sweep's seven chain missions)
-are held on a hand-made `MetricContext`, and read nothing (None) where
-the port has no such span or counter, as a program without them. The
-cell is listed, by name, on the streamed path's per-layer metrics, and
-its configuration's flags are `--list-encodings` less `replacement`."""
+the share of ISO-2022-JP's pieces whose last-set scans did, and the
+orbit kernel's roofline over the sweep's seven chain missions) are held
+on a hand-made `MetricContext` or synthetic counters, and read nothing
+(None) where the port has no such span or counter, as a program without
+them. The cell is listed, by name, on the streamed path's per-layer
+metrics and on the chain path's, and its configuration's flags are
+`--list-encodings` less `replacement`."""
 
 from collections import defaultdict
 
@@ -25,7 +27,12 @@ STREAMED = {"feed.ms_per_GB", "assemble.ms_per_GB",
             "feed.fetch.ms_per_GB", "feed.ranges.ms_per_GB",
             "emit.mission_max.ms_per_GB", "chunk.read_wait.ms_per_GB",
             "card.to_card_bytes_per_byte", "card.syncs_per_GB",
-            "feed.join.ms_per_GB"}
+            "feed.join.ms_per_GB", "feed.shared_pct"}
+# the chain path's, listed on this cell alone: (unit, source)
+CHAIN = {"feed.chain.ms_per_GB": ("ms/GB", "program_span"),
+         "feed.chain.wait.ms_per_GB": ("ms/GB", "program_span"),
+         "feed.chain.orbit_kernel_pct": ("%", "program_counter"),
+         "feed.chain.iso_kernel_pct": ("%", "program_counter")}
 MIB128 = 128 << 20
 KERNEL = "orbit_kernel(int const*, long, long, long, int*, bool*)"
 
@@ -71,6 +78,33 @@ def test_orbit_kernel_pct_reads_nothing_without_counters(monkeypatch):
     assert run.metric_reader("feed.chain.orbit_kernel_pct")(None) is None
 
 
+def test_iso_kernel_pct_reads_the_share_of_iso_pieces(counts):
+    read = run.metric_reader("feed.chain.iso_kernel_pct")
+    counts["feed.chain.pieces"] = 112  # the CJK kinds' pieces count here
+    assert read(None) is None  # no ISO-2022-JP piece fed
+    counts["feed.chain.iso_pieces"] = 16
+    assert read(None) == 0.0  # every last-set scan off the card: the CPU
+    counts["iso.scan.kernel"] = 16
+    assert read(None) == 100.0
+    counts["iso.scan.kernel"] = 4
+    assert read(None) == 25.0
+
+
+def test_iso_kernel_pct_reads_nothing_without_counters(monkeypatch):
+    monkeypatch.delattr(profiling, "_counts")
+    assert run.metric_reader("feed.chain.iso_kernel_pct")(None) is None
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN))
+def test_chain_entry(name):
+    entry = {m["name"]: m for m in BENCH["per_layer"]}[name]
+    unit, source = CHAIN[name]
+    assert (entry["unit"], entry["source"]) == (unit, source)
+    assert entry["better"] == ("lower" if unit == "ms/GB" else "higher")
+    assert entry["layer"] == "run-table feed"
+    assert entry["moves"] == "scan_GBps" and entry["workloads"] == [CELL]
+
+
 def test_orbit_roofline_over_seven_chain_missions_at_128_mib():
     """7 chain missions x 5 B a position x 134,217,728 B over 3.35 TB/s:
     1.4023 ms, against 112 launches (7 missions x 16 chunks) of 25 us."""
@@ -89,12 +123,13 @@ def test_orbit_roofline_over_seven_chain_missions_at_128_mib():
 
 def test_the_cell_reports_the_streamed_path_metrics():
     """Entries found by name, not by place: the cell is listed on every
-    per-layer metric of the streamed path that reads something in it."""
+    per-layer metric of the streamed path and of the chain path that
+    reads something in it."""
     cells = {w["name"]: w for w in BENCH["workloads"]}
     assert cells[CELL]["config"] == "allenc" and cells[CELL]["chips"] == 1
     listed = {m["name"] for m in BENCH["per_layer"]
               if CELL in m.get("workloads", [])}
-    assert listed >= STREAMED
+    assert listed >= STREAMED | set(CHAIN)
     cell = run.Cell(BENCH, CELL)
     assert {m["name"] for m in cell.per_layer} == listed
     assert all(m["moves"] == "scan_GBps" for m in cell.per_layer)

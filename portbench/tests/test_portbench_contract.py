@@ -107,18 +107,35 @@ def test_every_entry_resolves_to_its_files(name):
         assert callable(run.metric_reader(m["name"]))
 
 
-def test_a_new_metric_and_cell_are_picked_up_without_editing_a_file(
-        tmp_path):
+def _copy_checkout(tmp_path):
+    """BENCHMARK.json and portbench/ copied to `tmp_path`, and the bytes
+    of each file so copied, by its path there."""
     shutil.copy(os.path.join(run.ROOT, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(run.ROOT, "portbench"),
                     tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p: (tmp_path / p).read_bytes() for p in
-              ["BENCHMARK.json"] + [os.path.relpath(os.path.join(d, f),
-                                                    tmp_path)
-                                    for d, _, fs in os.walk(tmp_path /
-                                                            "portbench")
-                                    for f in fs]}
+    return {p: (tmp_path / p).read_bytes() for p in
+            ["BENCHMARK.json"] + [os.path.relpath(os.path.join(d, f),
+                                                  tmp_path)
+                                  for d, _, fs in os.walk(tmp_path /
+                                                          "portbench")
+                                  for f in fs]}
+
+
+def _rewrite_bench(tmp_path, bench):
+    (tmp_path / "BENCHMARK.json.new").write_text(json.dumps(bench))
+    os.replace(tmp_path / "BENCHMARK.json.new", tmp_path / "BENCHMARK.json")
+
+
+def _run_in(tmp_path, argv):
+    return subprocess.run(argv, cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_a_new_metric_and_cell_are_picked_up_without_editing_a_file(
+        tmp_path):
+    before = _copy_checkout(tmp_path)
     (tmp_path / "portbench/metrics/hello.ms_per_GB.py").write_text(
         "def read(ctx):\n    return ctx.ms_per_gb('hello')\n")
     (tmp_path / "portbench/traffic/dense8.json").write_text(json.dumps(
@@ -132,8 +149,7 @@ def test_a_new_metric_and_cell_are_picked_up_without_editing_a_file(
         "name": "hello.ms_per_GB", "unit": "ms/GB", "better": "lower",
         "source": "program_span", "layer": "emitter", "moves": "scan_GBps",
         "workloads": ["trio.dense8"]})
-    (tmp_path / "BENCHMARK.json.new").write_text(json.dumps(bench))
-    os.replace(tmp_path / "BENCHMARK.json.new", tmp_path / "BENCHMARK.json")
+    _rewrite_bench(tmp_path, bench)
     code = (
         "from portbench import run\n"
         "cell = run.Cell(run.load_json(run.ROOT, 'BENCHMARK.json'),"
@@ -144,11 +160,47 @@ def test_a_new_metric_and_cell_are_picked_up_without_editing_a_file(
         "ctx.scopes, ctx.gb = {'hello': 0.5}, 2.0\n"
         "print(cell.traffic['image_bytes'],"
         " run.metric_reader('hello.ms_per_GB')(ctx))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
-                         env=dict(os.environ, PYTHONPATH=str(tmp_path)),
-                         capture_output=True, text=True, timeout=120)
+    out = _run_in(tmp_path, [sys.executable, "-c", code])
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [str(8 << 20), "250.0"]
+    for p, data in before.items():
+        if p != "BENCHMARK.json":
+            assert (tmp_path / p).read_bytes() == data, p
+
+
+def test_an_appended_entry_is_picked_up_and_keeps_the_contract(tmp_path):
+    """One per-layer entry appended after the last, with a reader of its
+    own on a scope the port has (`feed.upload`) and listed on one cell:
+    that cell reports it and no other does, it reads its scope, and every
+    other test of this file passes on the copy."""
+    before = _copy_checkout(tmp_path)
+    (tmp_path / "portbench/metrics/feed.upload.ms_per_GB.py").write_text(
+        "def read(ctx):\n    return ctx.ms_per_gb('feed.upload')\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["per_layer"].append({
+        "name": "feed.upload.ms_per_GB", "unit": "ms/GB", "better": "lower",
+        "source": "program_span", "layer": "run-table feed",
+        "moves": "scan_GBps", "workloads": ["trio.sparse512_stream"]})
+    _rewrite_bench(tmp_path, bench)
+    code = (
+        "from portbench import run\n"
+        "bench = run.load_json(run.ROOT, 'BENCHMARK.json')\n"
+        "print(*[w['name'] for w in bench['workloads'] if"
+        " 'feed.upload.ms_per_GB' in"
+        " [m['name'] for m in run.Cell(bench, w['name']).per_layer]])\n"
+        "ctx = run.MetricContext.__new__(run.MetricContext)\n"
+        "ctx.scopes, ctx.gb = {'feed.upload': 0.5, 'device.feed': 9.0}, 2.0\n"
+        "print(run.metric_reader('feed.upload.ms_per_GB')(ctx))\n")
+    out = _run_in(tmp_path, [sys.executable, "-c", code])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["trio.sparse512_stream", "250.0"]
+    # the copy's own tests of this file, but the two that copy a checkout
+    out = _run_in(tmp_path, [
+        sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+        "-p", "no:randomly", "-k", "not picked_up",
+        "portbench/tests/test_portbench_contract.py"])
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    assert " passed" in out.stdout and "failed" not in out.stdout
     for p, data in before.items():
         if p != "BENCHMARK.json":
             assert (tmp_path / p).read_bytes() == data, p

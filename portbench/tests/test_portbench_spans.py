@@ -18,7 +18,7 @@ SPAN_METRICS = {"feed.lanes.ms_per_GB": "feed.lanes",
                 "feed.ranges.ms_per_GB": "feed.ranges",
                 "chunk.read_wait.ms_per_GB": "chunk.read_wait"}
 COUNTER_METRICS = ["card.to_card_bytes_per_byte", "card.syncs_per_GB",
-                   "hotmap.used_pct"]
+                   "feed.shared_pct"]
 
 
 def _ctx(scopes, gb=2.0, mode="streamed"):
@@ -71,13 +71,23 @@ def test_syncs_per_gb(counts):
     assert read(None) == pytest.approx(26 / 0.067108864, rel=1e-12)
 
 
-def test_hotmap_used_pct(counts):
-    read = run.metric_reader("hotmap.used_pct")
-    assert read(None) is None
-    counts.update({"hotmap.missions": 12, "hotmap.replaced": 12})
-    assert read(None) == 0.0
-    counts["hotmap.replaced"] = 3
+def test_shared_pct_reads_the_share_of_pieces_on_the_shared_upload(counts):
+    read = run.metric_reader("feed.shared_pct")
+    assert read(None) is None  # no piece fed
+    counts["feed.pieces"] = 40
+    assert read(None) == 0.0  # every piece copied its own bytes
+    counts["feed.shared_pieces"] = 40
+    assert read(None) == 100.0
+    counts["feed.shared_pieces"] = 30
     assert read(None) == 75.0
+
+
+def test_shared_pct_is_listed_on_every_cell_that_feeds():
+    entry = {m["name"]: m for m in BENCH["per_layer"]}["feed.shared_pct"]
+    assert entry["unit"] == "%" and entry["better"] == "higher"
+    assert entry["layer"] == "run-table feed"
+    assert entry["workloads"] == ["trio.dense64", "trio.sparse512_stream",
+                                  "allenc.sweep128_stream"]
 
 
 @pytest.mark.parametrize("metric", COUNTER_METRICS)
